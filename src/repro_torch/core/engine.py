@@ -1,0 +1,484 @@
+"""CoDR inference engine of the port: encode once, run many (paper
+§II-D + §III-B).
+
+* :class:`CodrConv2D` / :class:`CodrLinear` — one layer each.  At
+  construction the float weights run through the offline pipeline
+  exactly once (quantize → tile → sort/densify/unify → Δ → RLE
+  bitstreams); :meth:`CodrConv2D.from_code` adopts an existing code
+  instead.  The float weights are kept only as the test oracle; the
+  layer *executes* from the bitstreams.
+* **Decode on first dispatch** — the first forward pass decodes the
+  layer's RLE bitstreams in one vectorized pass
+  (:func:`repro_torch.core.rle.decode_layer`) and keeps the int8 tile
+  stack, as float32 on the layer's device, for every later request.
+* :class:`CodrModel` — chains layers over NHWC batches, flattening at
+  the conv→linear boundary, with dense float32 oracles and per-layer
+  SRAM access estimates.
+
+Execution goes through the backend registry
+(:mod:`repro_torch.core.backends`).  Layers live on one torch device;
+float32 convolutions and matmuls here run with TF32 off
+(:func:`full_fp32`), so ``tiled`` and the oracles keep float32 accuracy
+on the card as on the CPU.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import backends as _backends
+from repro_torch.core import dataflow, rle, ucr
+from repro_torch.core.dataflow import CODR_TILING, ConvShape
+
+__all__ = [
+    "CodrConv2D", "CodrLinear", "CodrModel", "LayerStats",
+    "decode_all_tiles", "decode_tile", "full_fp32", "paper_model_shapes",
+    "resolve_device",
+]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    names another.  Asking for CUDA where there is none raises — the port
+    never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port's plain CPU path")
+    return dev
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Run float32 convolutions and matmuls in full float32: cuDNN's
+    default for float32 convolutions is TF32 (about three decimal
+    digits), which the ``tiled`` lane and the oracles must not use."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+# ---------------------------------------------------------------------------
+# per-layer statistics
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerStats:
+    name: str
+    kind: str                      # "conv" | "linear"
+    shape: tuple[int, ...]
+    n_weights: int
+    encoded_bits: int
+    bits_per_weight: float
+    density: float
+    n_unique: int                  # sum of per-vector unique counts
+    n_nonzero: int
+    n_unique_budget: int = 256     # the U budget the layer encoded under
+    t_m: int = 4                   # EFFECTIVE output tile (clamped to M)
+    t_n: int = 4
+
+
+def _layer_stats(name: str, kind: str, code: ucr.LayerCode,
+                 n_unique_budget: int = 256) -> LayerStats:
+    n_unique = sum(len(u.unique_vals) for u in code.ucr)
+    n_nonzero = sum(u.n_nonzero for u in code.ucr)
+    return LayerStats(
+        name=name, kind=kind, shape=code.shape, n_weights=code.n_weights,
+        encoded_bits=code.total_bits, bits_per_weight=code.bits_per_weight,
+        density=n_nonzero / max(code.n_weights, 1),
+        n_unique=n_unique, n_nonzero=n_nonzero,
+        n_unique_budget=n_unique_budget,
+        t_m=min(code.t_m, code.shape[0]), t_n=code.t_n)
+
+
+# ---------------------------------------------------------------------------
+# bitstream → dense tiles
+# ---------------------------------------------------------------------------
+
+def _flat_vectors(code: ucr.LayerCode, vectors, ucrs, pad_to: int,
+                  source: str) -> np.ndarray:
+    if source == "bitstream":
+        return rle.decode_layer(vectors, pad_to=pad_to)
+    if source == "ucr":
+        flat = np.zeros((len(ucrs), pad_to), dtype=np.int8)
+        for i, u in enumerate(ucrs):
+            flat[i, : u.vector_len] = ucr.ucr_reconstruct(u)
+        return flat
+    raise ValueError(f"unknown decode source {source!r} "
+                     f"(expected 'bitstream' or 'ucr')")
+
+
+def decode_all_tiles(code: ucr.LayerCode, *,
+                     source: str = "bitstream") -> np.ndarray:
+    """All tiles, stacked: int8 ``(n_tiles, t_m, N, RK, CK)``.
+
+    ``source="bitstream"`` decodes the real RLE bitstreams in one
+    vectorized pass; ``source="ucr"`` rebuilds from the retained UCR
+    vectors (bit-identical)."""
+    n_tiles = -(-code.shape[0] // code.t_m)
+    n = code.shape[1]
+    rk, ck = (code.shape[2], code.shape[3]) if len(code.shape) == 4 else (1, 1)
+    flat = _flat_vectors(code, code.vectors, code.ucr, code.t_m * rk * ck,
+                         source)
+    return np.ascontiguousarray(
+        flat.reshape(n_tiles, n, code.t_m, rk, ck).transpose(0, 2, 1, 3, 4))
+
+
+def decode_tile(code: ucr.LayerCode, mt: int, *,
+                source: str = "bitstream") -> np.ndarray:
+    """Decode output-channel tile ``mt`` only — O(tile), not O(layer).
+    Returns int8 ``(t_m, N, RK, CK)``; rows past the true output-channel
+    count (ragged last tile) are zero."""
+    n = code.shape[1]
+    rk, ck = (code.shape[2], code.shape[3]) if len(code.shape) == 4 else (1, 1)
+    sl = slice(mt * n, (mt + 1) * n)
+    flat = _flat_vectors(code, code.vectors[sl], code.ucr[sl],
+                         code.t_m * rk * ck, source)
+    return np.ascontiguousarray(
+        flat.reshape(n, code.t_m, rk, ck).transpose(1, 0, 2, 3))
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+class _CodrLayer:
+    """What conv and linear layers share: the code, the decoded tile
+    cache, the device, the bias and the oracle weights."""
+
+    kind = ""
+
+    def _setup(self, code: ucr.LayerCode, w_ref, bias, *, activation, name,
+               decode_source, n_unique, device) -> None:
+        self.code = code
+        self.name = name
+        self.activation = activation
+        self.decode_source = decode_source
+        self.n_unique = int(n_unique)
+        self.device = resolve_device(device)
+        self.bias = None if bias is None else np.asarray(bias, np.float32)
+        self._w_ref = w_ref                  # oracle only — never executed
+        self._tiles: np.ndarray | None = None
+        self._tiles_dev: torch.Tensor | None = None
+        self._bias_dev: torch.Tensor | None = None
+
+    @property
+    def tiles(self) -> np.ndarray:
+        """Decoded int8 tile stack ``(n_tiles, t_m, N, RK, CK)`` (cached)."""
+        if self._tiles is None:
+            self._tiles = decode_all_tiles(self.code,
+                                           source=self.decode_source)
+        return self._tiles
+
+    @property
+    def tiles_device(self) -> torch.Tensor:
+        """The tile stack as float32 on the layer's device (cached)."""
+        if self._tiles_dev is None:
+            self._tiles_dev = torch.from_numpy(
+                self.tiles.astype(np.float32)).to(self.device)
+        return self._tiles_dev
+
+    @property
+    def bias_device(self) -> torch.Tensor:
+        if self._bias_dev is None:
+            self._bias_dev = torch.from_numpy(self.bias).to(self.device)
+        return self._bias_dev
+
+    @property
+    def scale(self) -> float:
+        return float(np.asarray(self.code.scale))
+
+    def decoded_weights(self) -> np.ndarray:
+        """Dense int8 weights rebuilt from the bitstreams: ``(M, N, RK,
+        CK)`` for conv, ``(M, N)`` for linear."""
+        t = self.tiles
+        m = self.code.shape[0]
+        return t.reshape(-1, *self.code.shape[1:])[:m]
+
+    def verify_roundtrip(self) -> None:
+        """Bitstream decode must equal direct quantization (plus any
+        unique-level restriction) of the float weights."""
+        if self._w_ref is None:
+            raise ValueError(f"{self.name}: no float weights to verify "
+                             f"against (layer built from a code)")
+        q, _ = ucr.quantize_int8(self._w_ref)
+        q = ucr.restrict_unique(q, self.n_unique)
+        if not np.array_equal(self.decoded_weights(), q):
+            raise AssertionError(f"{self.name}: UCR+RLE roundtrip mismatch")
+
+    def stats(self) -> LayerStats:
+        return _layer_stats(self.name, self.kind, self.code,
+                            n_unique_budget=self.n_unique)
+
+    def _oracle_weights(self) -> torch.Tensor:
+        if self._w_ref is None:
+            raise ValueError(f"{self.name}: no float weights for the dense "
+                             f"oracle (layer built from a code)")
+        return torch.from_numpy(self._w_ref).to(self.device)
+
+    def _dequantized_weights(self) -> torch.Tensor:
+        w = self.decoded_weights().astype(np.float32) * self.scale
+        return torch.from_numpy(w).to(self.device)
+
+
+class CodrConv2D(_CodrLayer):
+    """A conv layer executed from its CoDR code (VALID padding, NHWC).
+
+    ``w`` is float ``(M, N, RK, CK)`` (OIHW); encoding happens once here.
+    """
+
+    kind = "conv"
+
+    def __init__(self, w: np.ndarray, bias: np.ndarray | None = None, *,
+                 stride: int = 1, t_m: int = 4, t_n: int = 4,
+                 activation: str | None = None, name: str = "conv",
+                 decode_source: str = "bitstream", n_unique: int = 256,
+                 rle_params: tuple[int, int, int] | None = None,
+                 device="cuda"):
+        w = np.asarray(w, dtype=np.float32)
+        if w.ndim != 4:
+            raise ValueError("conv weights must be (M, N, RK, CK)")
+        code = ucr.encode_conv_layer(w, t_m=t_m, t_n=t_n, n_unique=n_unique,
+                                     params=rle_params)
+        self.stride = int(stride)
+        self._setup(code, w, bias, activation=activation, name=name,
+                    decode_source=decode_source, n_unique=n_unique,
+                    device=device)
+        self._smm_ops = None                  # packed SMM kernel operands
+
+    @classmethod
+    def from_code(cls, code: ucr.LayerCode, bias=None, *, stride: int = 1,
+                  activation: str | None = None, name: str = "conv",
+                  decode_source: str = "bitstream", n_unique: int = 256,
+                  device="cuda") -> "CodrConv2D":
+        """A layer that executes an existing code (no float weights, so
+        no dense ``reference``)."""
+        self = cls.__new__(cls)
+        self.stride = int(stride)
+        self._setup(code, None, bias, activation=activation, name=name,
+                    decode_source=decode_source, n_unique=n_unique,
+                    device=device)
+        self._smm_ops = None
+        return self
+
+    def out_hw(self, ri: int, ci: int) -> tuple[int, int]:
+        rk, ck = self.code.shape[2], self.code.shape[3]
+        return ((ri - rk) // self.stride + 1, (ci - ck) // self.stride + 1)
+
+    def conv_shape(self, ri: int, ci: int) -> ConvShape:
+        m, n, rk, ck = self.code.shape
+        return ConvShape(m, n, rk, ck, ri, ci, self.stride)
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        with full_fp32():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride)
+        return y.permute(0, 2, 3, 1)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Tiled forward: NHWC ``(B, RI, CI, N)`` float32 → ``(B, RO, CO,
+        M)``, one ``F.conv2d`` over the decoded tile stack (every tile's
+        output-channel slice is still produced exactly once)."""
+        t = self.tiles_device
+        w = t.reshape(-1, *t.shape[2:])[: self.code.shape[0]]
+        return _backends._finish(self, self._conv(x, w) * self.scale)
+
+    def reference(self, x: torch.Tensor) -> torch.Tensor:
+        """Dense float32 oracle on the ORIGINAL float weights."""
+        return _backends._finish(self, self._conv(x, self._oracle_weights()))
+
+    def quantized_reference(self, x: torch.Tensor) -> torch.Tensor:
+        """Dense float32 oracle on the dequantized decoded weights."""
+        return _backends._finish(
+            self, self._conv(x, self._dequantized_weights()))
+
+    def smm_operands(self):
+        """Padded SMM kernel operands, packed once per layer and kept on
+        the layer's device — every dispatch (any batch size) reuses them."""
+        if self._smm_ops is None:
+            from repro_torch.kernels.smm_conv.ops import smm_operands_on
+            self._smm_ops = smm_operands_on(self.code, self.code.shape[1],
+                                            self.device)
+        return self._smm_ops
+
+
+class CodrLinear(_CodrLayer):
+    """A fully-connected layer executed from its CoDR code.
+
+    ``w`` is float ``(M, N)`` = (out features, in features) — a conv with a
+    1×1 kernel (paper Fig. 1).
+    """
+
+    kind = "linear"
+
+    def __init__(self, w: np.ndarray, bias: np.ndarray | None = None, *,
+                 t_m: int = 256, activation: str | None = None,
+                 name: str = "linear", decode_source: str = "bitstream",
+                 n_unique: int = 256,
+                 rle_params: tuple[int, int, int] | None = None,
+                 device="cuda"):
+        w = np.asarray(w, dtype=np.float32)
+        if w.ndim != 2:
+            raise ValueError("linear weights must be (M, N)")
+        code = ucr.encode_linear_layer(w, t_m=min(t_m, w.shape[0]),
+                                       n_unique=n_unique, params=rle_params)
+        self._setup(code, w, bias, activation=activation, name=name,
+                    decode_source=decode_source, n_unique=n_unique,
+                    device=device)
+
+    @classmethod
+    def from_code(cls, code: ucr.LayerCode, bias=None, *,
+                  activation: str | None = None, name: str = "linear",
+                  decode_source: str = "bitstream", n_unique: int = 256,
+                  device="cuda") -> "CodrLinear":
+        """A layer that executes an existing code (see
+        :meth:`CodrConv2D.from_code`)."""
+        self = cls.__new__(cls)
+        self._setup(code, None, bias, activation=activation, name=name,
+                    decode_source=decode_source, n_unique=n_unique,
+                    device=device)
+        return self
+
+    def decoded_weights(self) -> np.ndarray:
+        t = self.tiles
+        m, n = self.code.shape[0], self.code.shape[1]
+        return t.reshape(-1, n)[:m]
+
+    def _matmul(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        with full_fp32():
+            return x @ w.T
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``: ``(B, N)`` float32 → ``(B, M)``, one matmul over the
+        decoded tile stack."""
+        t = self.tiles_device
+        w = t.reshape(t.shape[0] * t.shape[1], -1)[: self.code.shape[0]]
+        return _backends._finish(self, self._matmul(x, w) * self.scale)
+
+    def reference(self, x: torch.Tensor) -> torch.Tensor:
+        return _backends._finish(self,
+                                 self._matmul(x, self._oracle_weights()))
+
+    def quantized_reference(self, x: torch.Tensor) -> torch.Tensor:
+        return _backends._finish(
+            self, self._matmul(x, self._dequantized_weights()))
+
+
+# ---------------------------------------------------------------------------
+# model = chained layers
+# ---------------------------------------------------------------------------
+
+class CodrModel:
+    """A stack of CoDR layers on one device, with dense float32 oracles.
+
+    ``run`` executes from the RLE bitstreams (decoded on first dispatch);
+    ``reference`` runs the original float weights, ``quantized_reference``
+    the dequantized decoded ones.
+    """
+
+    def __init__(self, layers: Sequence[CodrConv2D | CodrLinear]):
+        self.layers = list(layers)
+        if not self.layers:
+            raise ValueError("CodrModel needs at least one layer")
+        devices = {l.device for l in self.layers}
+        if len(devices) != 1:
+            raise ValueError(f"layers live on several devices: {devices}")
+        self.device = self.layers[0].device
+
+    def as_input(self, batch) -> torch.Tensor:
+        """A batch (array or tensor) as float32 on the model's device."""
+        return torch.as_tensor(batch, dtype=torch.float32, device=self.device)
+
+    def _chain(self, x: torch.Tensor, step) -> torch.Tensor:
+        for layer in self.layers:
+            if layer.kind == "linear" and x.dim() > 2:
+                x = x.reshape(x.shape[0], -1)
+            x = step(layer, x)
+        return x
+
+    def __call__(self, batch, *,
+                 backend: str | _backends.Backend = "tiled") -> torch.Tensor:
+        return self.run(batch, backend=backend)
+
+    def run(self, batch, *,
+            backend: str | _backends.Backend = "tiled") -> torch.Tensor:
+        """Forward an NHWC batch through the compressed model via the
+        registry (a registered name or a ``Backend`` instance)."""
+        return _backends.resolve(backend).run_model(self, batch)
+
+    def reference(self, batch) -> torch.Tensor:
+        """Dense float oracle (uncompressed weights)."""
+        return self._chain(self.as_input(batch), lambda l, x: l.reference(x))
+
+    def quantized_reference(self, batch) -> torch.Tensor:
+        """Dense oracle on the DEQUANTIZED decoded weights — ``run`` must
+        match this up to float summation order."""
+        return self._chain(self.as_input(batch),
+                           lambda l, x: l.quantized_reference(x))
+
+    # -- bookkeeping --------------------------------------------------------
+    def verify_roundtrip(self) -> None:
+        for layer in self.layers:
+            layer.verify_roundtrip()
+
+    def stats(self) -> list[LayerStats]:
+        return [l.stats() for l in self.layers]
+
+    def total_bits(self) -> int:
+        return sum(l.code.total_bits for l in self.layers)
+
+    def bits_per_weight(self) -> float:
+        n = sum(l.code.n_weights for l in self.layers)
+        return self.total_bits() / max(n, 1)
+
+    def sram_report(self, input_hw: tuple[int, int],
+                    cfg: dataflow.TilingConfig = CODR_TILING,
+                    per_layer_tiling: bool = False
+                    ) -> list[tuple[str, dataflow.AccessCounts]]:
+        """Per-layer CoDR SRAM access estimates for one sample, tracking
+        spatial dims through the conv stack (linear = 1×1 conv on a 1×1
+        feature map).  ``per_layer_tiling`` counts each layer under its
+        own effective encode tile geometry."""
+        ri, ci = input_hw
+        out = []
+        for layer in self.layers:
+            st = layer.stats()
+            if layer.kind == "conv":
+                shape = layer.conv_shape(ri, ci)
+                ri, ci = layer.out_hw(ri, ci)
+            else:
+                m, n = layer.code.shape[0], layer.code.shape[1]
+                shape = ConvShape(m, n, 1, 1, 1, 1, 1)
+            tiling = dataflow.codr_tiling(st.t_m, st.t_n, base=cfg) \
+                if per_layer_tiling else cfg
+            out.append((layer.name, dataflow.codr_accesses(
+                shape, tiling, float(layer.code.total_bits),
+                float(st.n_unique), float(st.n_nonzero))))
+        return out
+
+
+def paper_model_shapes(net: str = "alexnet", n_conv: int = 2,
+                       ri: int | None = None, ci: int | None = None
+                       ) -> list[ConvShape]:
+    """Channel/kernel geometry of the first ``n_conv`` conv layers of a
+    paper CNN, optionally with reduced spatial dims on the first layer
+    (channel structure — what UCR compresses — is untouched)."""
+    from repro_torch.configs.paper_cnns import PAPER_CNNS
+    shapes = []
+    for s in PAPER_CNNS[net][:n_conv]:
+        use_ri = ri if ri is not None else s.ri
+        use_ci = ci if ci is not None else s.ci
+        shapes.append(ConvShape(s.m, s.n, s.rk, s.ck, use_ri, use_ci,
+                                s.stride))
+        ri = ci = None                      # only the first layer is forced
+    return shapes

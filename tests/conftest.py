@@ -21,3 +21,9 @@ def rng():
 @pytest.fixture(scope="session")
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (a hand-written CUDA "
+        "kernel has no CPU mode); skips where there is no card")
