@@ -1,5 +1,5 @@
-"""Spec → compile → run: the port's CoDR engine API (the CNN half of
-``repro.core.api``).
+"""Spec → compile → run: the port's CoDR engine API — the CNN lane and
+the transformer lane of ``repro.core.api``.
 
 1. :class:`ModelSpec` — a declarative layer graph, from raw arrays
    (:meth:`LayerSpec.conv` / :meth:`LayerSpec.dense`), from the paper
@@ -12,6 +12,9 @@
    the caller passes ``device="cpu"``): ``.run`` from the bitstreams,
    ``.reference`` / ``.quantized_reference`` oracles, ``.stats`` /
    ``.sram_report`` accounting.
+4. :func:`compile_params` — the transformer lane: a params tree of
+   :mod:`repro_torch.models` with every projection leaf replaced by its
+   packed form, served through the backend registry.
 
 Import as ``repro_torch.api``::
 
@@ -37,6 +40,7 @@ from repro_torch.core.engine import resolve_device
 
 __all__ = [
     "LayerSpec", "ModelSpec", "EncodeConfig", "CompiledModel", "compile",
+    "PACK_INCLUDE", "EMBED_INCLUDE", "CompiledParams", "compile_params",
 ]
 
 
@@ -479,3 +483,200 @@ def compile(spec: ModelSpec, config: EncodeConfig | None = None, *,
                 rle_params=cfg.rle_params, device=dev))
     return CompiledModel(_engine.CodrModel(layers), spec, config, be,
                          plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# the transformer lane: compile a params tree
+# ---------------------------------------------------------------------------
+
+#: path substrings identifying projection leaves in ``repro_torch.models``
+#: params (q/k/v/o, up/gate/down, router and expert stacks)
+PACK_INCLUDE = ("proj", "router", "w_experts")
+EMBED_INCLUDE = ("embed",)        # (V, d) leaves packed for row-gather
+
+
+class _ConvLeafShim:
+    """Duck-typed layer handed to ``Backend.supports`` so a conv-shaped
+    leaf in ``compile_params`` fails with the capability error surface
+    ``compile`` uses."""
+
+    kind = "conv"
+    stride = 1
+
+    def __init__(self, name: str):
+        self.name = name
+
+
+@dataclasses.dataclass
+class CompiledParams:
+    """What :func:`compile_params` returns: the params tree with every
+    projection leaf replaced by its packed form
+    (:class:`~repro_torch.core.codr_linear.PackedLinear`) and every
+    embedding by :class:`~repro_torch.core.codr_linear.PackedEmbedding`,
+    plus the accounting.  ``params`` drops into the
+    :mod:`repro_torch.models` forwards unchanged; the byte counts are
+    measured on the stored packs."""
+
+    params: object
+    reports: list                 # serving.TensorReport per packed leaf
+    packed_paths: list
+    quantized_paths: list         # quantize-applied but served dense
+    config: EncodeConfig
+    backend: str
+    plan: object = None           # per-leaf encode configs, or None
+    embed_paths: list = dataclasses.field(default_factory=list)
+
+    def packed_leaves(self):
+        """``(path_str, PackedLinear | PackedEmbedding)`` pairs, flatten
+        order."""
+        from repro_torch.core.codr_linear import PackedEmbedding, PackedLinear
+        from repro_torch.core.tree import leaves_with_path
+        return [(p, leaf) for p, leaf in leaves_with_path(self.params)
+                if isinstance(leaf, (PackedLinear, PackedEmbedding))]
+
+    # -- measured accounting ------------------------------------------------
+    def hbm_bytes(self) -> int:
+        """Real bytes of the packed representation (indices + tables +
+        scales) — the number the serving path reports."""
+        return sum(pl.hbm_bytes for _, pl in self.packed_leaves())
+
+    def dense_bf16_bytes(self) -> int:
+        return sum(pl.n_weights * 2 for _, pl in self.packed_leaves())
+
+    def n_packed_weights(self) -> int:
+        return sum(pl.n_weights for _, pl in self.packed_leaves())
+
+    def bits_per_weight(self) -> float:
+        return self.hbm_bytes() * 8 / max(self.n_packed_weights(), 1)
+
+    def compression_vs_bf16(self) -> float:
+        return self.dense_bf16_bytes() / max(self.hbm_bytes(), 1)
+
+    def summary(self) -> str:
+        """Human-readable accounting: the RLE/baseline comparison (when
+        accounting ran) plus the measured packed-representation bytes."""
+        lines = []
+        if self.reports:
+            from repro_torch.core.serving import codr_report
+            lines.append(codr_report(self.reports))
+        lines.append(
+            f"packed {len(self.packed_paths)} projection tensors + "
+            f"{len(self.embed_paths)} embedding tables "
+            f"({self.n_packed_weights() / 1e6:.2f}M weights) for backend "
+            f"{self.backend!r}: {self.hbm_bytes() / 1e6:.3f} MB HBM "
+            f"measured ({self.bits_per_weight():.2f} bits/weight, "
+            f"{self.compression_vs_bf16():.1f}x vs bf16); "
+            f"{len(self.quantized_paths)} more tensors quantize-applied, "
+            f"served dense")
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return (f"CompiledParams({len(self.packed_paths)} packed + "
+                f"{len(self.quantized_paths)} quantized leaves, "
+                f"{self.bits_per_weight():.2f} bits/weight, "
+                f"backend={self.backend!r})")
+
+
+def compile_params(params, config: EncodeConfig | None = None, *,
+                   backend: str | _backends.Backend = "codr_matmul",
+                   plan=None,
+                   min_size: int | None = None,
+                   include: Sequence[str] = PACK_INCLUDE,
+                   exclude: Sequence[str] = (),
+                   pack_embeddings: bool = True,
+                   sample_rows: int | None = 4096,
+                   accounting: bool = True,
+                   device=None) -> CompiledParams:
+    """Offline-encode a :mod:`repro_torch.models` params tree for serving
+    from the compressed representation (the transformer lane).
+
+    Every projection leaf (path matches ``include`` and not ``exclude``,
+    ``ndim >= 2``, ``numel >= min_size``) is quantized under the
+    ``config`` U budget and packed (:class:`PackedLinear`); 2-D leaves
+    matching ``EMBED_INCLUDE`` become row-gatherable
+    :class:`PackedEmbedding` tables (``pack_embeddings=False`` turns that
+    off); every *other* large leaf gets the quantization applied in place
+    and is served dense, as ``serving.codr_compress_params`` does — so
+    packed and quantize-applied serving see bit-identical weights.
+    Leading stack dims pack per matrix under one shared quantization.
+
+    Each leaf is encoded with torch ops on ``device`` — ``None`` means
+    the card, and raises when there is none; the packs are byte-identical
+    to ``repro.core.api.compile_params``'.  The ``backend`` must declare
+    ``caps.packed_matmul``; a conv-shaped leaf that matches ``include``
+    raises that backend's capability error.  ``min_size`` defaults to
+    ``serving.MIN_COMPRESS_SIZE``; ``sample_rows`` / ``accounting``
+    bound the per-tensor RLE accounting on the host (the packed bytes
+    are always measured in full).  ``plan`` — optional per-leaf
+    ``{path: EncodeConfig}``; leaves it does not name use ``config``.
+    """
+    from repro_torch.core import serving as _serving
+    from repro_torch.core.codr_linear import pack_embedding, pack_projection
+    from repro_torch.core.tree import map_with_path
+
+    dev = resolve_device(device)
+    config = EncodeConfig() if config is None else config
+    be = _backends.resolve(backend)
+    if not be.caps.packed_matmul:
+        raise ValueError(
+            f"backend {be.name!r} has no packed-projection matmul path "
+            f"(caps.packed_matmul is False); packed-capable backends: "
+            f"{', '.join(n for n in _backends.available_backends() if _backends.get_backend(n).caps.packed_matmul)}")
+    if min_size is None:
+        min_size = _serving.MIN_COMPRESS_SIZE
+
+    reports: list = []
+    packed_paths: list = []
+    quantized_paths: list = []
+    embed_paths: list = []
+
+    def report(pstr, t, n_unique, pack_bits):
+        if accounting:
+            acc = _serving.account_tensor(
+                _serving._host(t.reshape(-1, t.shape[-1])),
+                n_unique=n_unique, sample_rows=sample_rows)
+            acc["pack_bits"] = pack_bits    # measured, not estimated
+            reports.append(_serving.TensorReport(
+                path=pstr, n_weights=t.numel(), **acc))
+
+    def leaf_fn(pstr, leaf):
+        t = leaf.to(dev)
+        if t.dim() < 2 or t.numel() < min_size:
+            return t
+        n_unique = _plan_config(plan, pstr, config).n_unique
+        excluded = any(tok in pstr for tok in exclude)
+        if (pack_embeddings and t.dim() == 2 and not excluded
+                and any(tok in pstr for tok in EMBED_INCLUDE)):
+            pe = pack_embedding(t, n_unique=n_unique, backend=be.name)
+            embed_paths.append(pstr)
+            report(pstr, t, n_unique, pe.hbm_bytes * 8)
+            return pe
+        if excluded or not any(tok in pstr for tok in include):
+            # quantize-applied, served dense (the codr_compress_params
+            # lane) — norms and biases past min_size, and embeddings
+            # when pack_embeddings is off
+            deq, _ = _serving._quantize_only(t.reshape(-1, t.shape[-1]),
+                                             n_unique)
+            quantized_paths.append(pstr)
+            return deq.reshape(t.shape).to(t.dtype)
+        if t.dim() == 4 and max(t.shape[-2:]) < 16:
+            # OIHW conv kernel: both trailing dims are small spatial
+            # extents, unlike a stacked expert projection
+            ok, reason = be.supports(_ConvLeafShim(pstr))
+            raise ValueError(reason if not ok else
+                             f"compile_params packs linear projections "
+                             f"only; conv leaf {pstr!r} must go through "
+                             f"ModelSpec.from_params → compile")
+        pl = pack_projection(t, n_unique=n_unique, backend=be.name)
+        packed_paths.append(pstr)
+        report(pstr, t, n_unique, pl.hbm_bytes * 8)
+        return pl
+
+    new_params = map_with_path(leaf_fn, params)
+    if not packed_paths:
+        raise ValueError(
+            "compile_params found no packable projection leaves "
+            f"(include={tuple(include)!r}, min_size={min_size}) — for "
+            "conv/dense checkpoint trees use ModelSpec.from_params")
+    return CompiledParams(new_params, reports, packed_paths, quantized_paths,
+                          config, be.name, plan, embed_paths=embed_paths)

@@ -20,6 +20,13 @@ Built-ins registered at import:
 ``smm_kernel``   the hand-written CUDA MPE/APE kernel
                  (:mod:`repro_torch.kernels.smm_conv`), whole batch in one
                  launch (integer activations)
+``codr_matmul``  the hand-written CUDA fused decode+matmul kernel
+                 (:mod:`repro_torch.kernels.codr_matmul`): linear layers,
+                 and every packed projection of the transformer lane
+
+The transformer lane enters through :meth:`Backend.matmul` /
+:meth:`Backend.gather` / :meth:`Backend.unembed`, which
+``repro_torch.models.common`` calls on packed params leaves.
 
 Layers are duck-typed (:class:`repro_torch.core.engine.CodrConv2D` /
 ``CodrLinear``); activations are NHWC torch tensors on the model's
@@ -38,7 +45,7 @@ from repro_torch.core import smm
 __all__ = [
     "Backend", "BackendCaps", "available_backends", "get_backend",
     "register", "resolve", "TiledBackend", "SmmBackend",
-    "SmmKernelBackend",
+    "SmmKernelBackend", "CodrMatmulBackend",
 ]
 
 
@@ -57,12 +64,16 @@ class BackendCaps:
     ``native_kinds``         layer kinds the backend executes itself.
     ``fallback_kinds``       kinds delegated to the layer's own tiled
                              forward (empty = unsupported kinds error).
+    ``packed_matmul``        the backend can execute a packed projection
+                             leaf (:meth:`Backend.matmul`); gates
+                             ``compile_params``.
     """
 
     max_stride: int | None = None
     integer_activations: bool = False
     native_kinds: frozenset = frozenset({"conv", "linear"})
     fallback_kinds: frozenset = frozenset()
+    packed_matmul: bool = False
     description: str = ""
 
     def supports_stride(self, stride: int) -> bool:
@@ -166,6 +177,29 @@ class Backend(abc.ABC):
         """The shared epilogue: ``+ bias`` (if any), then the activation."""
         return _finish(layer, y)
 
+    def matmul(self, x: torch.Tensor, w) -> torch.Tensor:
+        """Execute one packed projection leaf
+        (:class:`repro_torch.core.codr_linear.PackedLinear`):
+        ``(..., K) @ dequantize(w) → (..., out_features)`` in ``x``'s
+        dtype.  The default is decode-then-matmul with exactly the dense
+        ``linear`` numerics (the float32 dequantized weight cast to
+        ``x.dtype``, then the product), so ``tiled`` serves logits
+        bit-for-bit equal to the quantize-applied dense params.  Only
+        meaningful when ``caps.packed_matmul`` is set."""
+        return torch.matmul(x, w.dense().to(x.dtype))
+
+    def gather(self, tokens: torch.Tensor, w) -> torch.Tensor:
+        """Embedding lookup on a packed vocabulary table
+        (:class:`repro_torch.core.codr_linear.PackedEmbedding`): gather
+        the packed rows for ``tokens`` and decode only those — bit-for-bit
+        equal to indexing the quantize-applied dense table."""
+        return w.lookup(tokens)
+
+    def unembed(self, x: torch.Tensor, w) -> torch.Tensor:
+        """Logit projection ``x @ dense(w).T`` against a packed output
+        embedding, with the dense ``unembed`` numerics."""
+        return torch.matmul(x, w.dense().to(x.dtype).T)
+
     def run_model(self, model, batch) -> torch.Tensor:
         """Forward a batch through a :class:`~repro_torch.core.engine.
         CodrModel`: moved to the model's device as float32, then
@@ -226,7 +260,8 @@ class TiledBackend(Backend):  # codrlint: disable=capability-consistency — 'ti
     with TF32 off (the counterpart of the reference's fused ``lax.conv``)."""
 
     name = "tiled"
-    caps = BackendCaps(description="one F.conv2d/matmul per layer over the "
+    caps = BackendCaps(packed_matmul=True,
+                       description="one F.conv2d/matmul per layer over the "
                                    "decoded tile stack, any stride, float32 "
                                    "datapath (TF32 off)")
 
@@ -289,6 +324,71 @@ class SmmKernelBackend(Backend):  # codrlint: disable=capability-consistency —
         return _finish(layer, y.permute(0, 2, 3, 1) * scale)
 
 
+class CodrMatmulBackend(Backend):  # codrlint: disable=capability-consistency — 'codr_matmul' keys the port's own registry, separate from repro.core.backends'
+    """The CUDA fused decode+matmul kernel
+    (:mod:`repro_torch.kernels.codr_matmul`): linear layers and packed
+    projections execute from the fixed-width unique-index pack.
+    Linear-only — a model with conv layers is rejected at compile time
+    via :meth:`supports`.  On CPU tensors the kernel's plain version runs
+    instead."""
+
+    name = "codr_matmul"
+    _caps: BackendCaps | None = None
+
+    @property
+    def caps(self) -> BackendCaps:
+        if self._caps is None:
+            from repro_torch.kernels.codr_matmul import ops as mm_ops
+            kc = mm_ops.KERNEL_CAPS
+            self._caps = BackendCaps(
+                native_kinds=frozenset(kc["kinds"]),
+                integer_activations=kc["integer_activations"],
+                packed_matmul=kc.get("packed_matmul", False),
+                description=kc["description"])
+        return self._caps
+
+    def conv(self, layer, x):                      # pragma: no cover
+        raise NotImplementedError("codr_matmul is linear-only")
+
+    def matmul(self, x, w):
+        """Fused decode+matmul from the packed words, float32 activations
+        and accumulation, cropped to ``out_features`` and cast back to
+        ``x``'s dtype.  One matrix at a time: the layer loop slices a
+        stacked pack first."""
+        from repro_torch.kernels.codr_matmul import codr_matmul
+        if w.weight.packed.dim() != 2:
+            raise ValueError(
+                "codr_matmul executes per-matrix packed operands; got a "
+                f"stacked pack of shape {tuple(w.weight.packed.shape)} — "
+                "slice the stack axis (w[i]) or decode via dense_weight() "
+                "first")
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
+        y = codr_matmul(x2, w.weight)[:, : w.out_features]
+        return y.reshape(*lead, w.out_features).to(x.dtype)
+
+    def linear(self, layer, x):
+        from repro_torch.core.codr_linear import pack_unique
+        from repro_torch.kernels.codr_matmul import codr_matmul
+        packed = getattr(layer, "_mm_packed", None)
+        if packed is None:
+            # decoded (M, N) int8 → (K=N_in, N=M_out) pack; M_out padded
+            # to a multiple of 32, which every per-word width divides,
+            # and the extra columns cropped after the matmul
+            q = layer.decoded_weights().T            # (N_in, M_out) int8
+            pad = (-q.shape[1]) % 32
+            if pad:
+                q = np.pad(q, ((0, 0), (0, pad)))
+            packed = pack_unique(
+                torch.from_numpy(np.ascontiguousarray(q)).to(layer.device),
+                float(np.asarray(layer.code.scale)), dtype=torch.float32)
+            layer._mm_packed = packed
+        m = layer.code.shape[0]
+        y = codr_matmul(x.to(torch.float32).contiguous(), packed)[:, :m]
+        return _finish(layer, y)
+
+
 register(TiledBackend())
 register(SmmBackend())
 register(SmmKernelBackend())
+register(CodrMatmulBackend())

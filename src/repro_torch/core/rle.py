@@ -29,7 +29,8 @@ from repro_torch.core.packing import (escape_field_offsets_batch,
 
 __all__ = [
     "FULL_BITS", "HEADER_BITS", "Stream", "EncodedVector", "encode_vector",
-    "decode_layer", "layer_params_search", "delta_transform",
+    "decode_layer", "layer_params_search", "layer_bits_size_only",
+    "delta_transform", "escape_stream_bits", "index_delta_fields",
 ]
 
 FULL_BITS = 8            # full-precision fallback width for int8 weight deltas
@@ -384,3 +385,33 @@ def layer_params_search(ucr_vectors, vector_len: int) -> tuple[int, int, int]:
     rp = search_rep_param(all_reps, dcost)
     ip = search_index_param(all_idx, index_bits)
     return dp, rp, ip
+
+
+def layer_bits_size_only(ucr_vectors, vector_len: int,
+                         params: tuple[int, int, int] | None = None) -> int:
+    """Exact encoded size of a whole layer under shared per-layer params,
+    without materializing a bitstream (the serving accounting).
+
+    ``params`` — optional fixed (delta, rep, index) bit-lengths; ``None``
+    runs :func:`layer_params_search` first.  Equal, bit for bit, to
+    ``encode_conv_layer(...).total_bits`` under the same params."""
+    if not ucr_vectors:
+        return 3 * HEADER_BITS
+    index_bits = max(1, math.ceil(math.log2(max(vector_len, 2))))
+    if params is None:
+        dp, rp, ip = layer_params_search(ucr_vectors, vector_len)
+    else:
+        dp, rp, ip = (int(p) for p in params)
+    ip = min(ip, index_bits)
+    all_deltas = np.concatenate(
+        [delta_transform(u.unique_vals) for u in ucr_vectors])
+    all_reps = np.concatenate([u.reps for u in ucr_vectors])
+    all_idx = np.concatenate(
+        [index_delta_fields(u.indexes)[0] for u in ucr_vectors])
+    entries, dummy = split_rep_overflow(all_reps, rp)
+    full_deltas = np.zeros(len(entries), dtype=np.int64)
+    full_deltas[~dummy] = all_deltas
+    return (escape_stream_bits(full_deltas, dp, FULL_BITS)
+            + len(entries) * rp
+            + escape_stream_bits(all_idx, ip, index_bits)
+            + 3 * HEADER_BITS)

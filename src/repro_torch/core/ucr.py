@@ -24,7 +24,7 @@ from repro_torch.core import rle
 
 __all__ = [
     "UCRVector", "ucr_transform", "ucr_reconstruct", "quantize_int8",
-    "restrict_unique", "encode_conv_layer", "encode_linear_layer",
+    "dequantize_int8", "restrict_unique", "encode_conv_layer", "encode_linear_layer",
     "LayerCode",
 ]
 
@@ -80,6 +80,10 @@ def quantize_int8(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     scale = np.float32(amax / 127.0 if amax > 0 else 1.0)
     q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
     return q, np.asarray(scale)
+
+
+def dequantize_int8(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    return q.astype(np.float32) * scale
 
 
 def restrict_unique(q: np.ndarray, n_unique: int) -> np.ndarray:

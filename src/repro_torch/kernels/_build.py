@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 
 _lock = threading.Lock()
-_loaded: dict[pathlib.Path, ctypes.CDLL] = {}   # touched only under _lock
+_loaded: dict[pathlib.Path, ctypes.CDLL] = {}   # guarded-by: _lock
+_building: dict[pathlib.Path, threading.Lock] = {}   # guarded-by: _lock
 
 
 def _nvcc() -> str:
@@ -45,13 +46,16 @@ def load_library(source: pathlib.Path) -> ctypes.CDLL:
     memory and spills per kernel) land in :data:`BUILD_DIR` as
     ``lib<stem>-<hash>.so`` / ``.log``.  The build writes a per-process
     temporary name and renames it into place, so concurrent processes
-    never load a half-written library."""
+    never load a half-written library.  Different sources build
+    concurrently from different threads; one source builds once."""
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}-{digest}.so"
     with _lock:
         if lib in _loaded:
             return _loaded[lib]
+        building = _building.setdefault(lib, threading.Lock())
+    with building:
         if not lib.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -64,5 +68,7 @@ def load_library(source: pathlib.Path) -> ctypes.CDLL:
                                    f"(exit {proc.returncode}):\n"
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, lib)
-        _loaded[lib] = ctypes.CDLL(str(lib))
-        return _loaded[lib]
+        with _lock:
+            if lib not in _loaded:
+                _loaded[lib] = ctypes.CDLL(str(lib))
+            return _loaded[lib]
