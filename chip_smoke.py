@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's CUDA kernels from the sources in this checkout (one
-``nvcc`` per source, all started together) and drives the port's two
-main paths, each through the entry points a user calls:
+Builds the port's three CUDA kernels from the sources in this checkout
+(``smm_conv.cu``, ``codr_matmul.cu`` and ``flash_attention.cu``: one
+``nvcc`` per source, all three started together) and drives the port's
+three paths, each through the entry points a user calls:
 
 * CNN inference from compressed weights (spec → ``compile`` →
   ``CompiledModel.run`` on the ``smm_kernel`` backend) at the published
@@ -13,7 +14,16 @@ main paths, each through the entry points a user calls:
 * transformer serving from packed weights (``init_params`` →
   ``compile_params`` → ``prefill`` → greedy ``decode_step`` loop, as
   ``run_serve`` does) at the published widths of qwen2.5-3b, every
-  projection on the ``codr_matmul`` kernel.
+  projection on the ``codr_matmul`` kernel;
+* attention through its own entry point, ``flash_attention_kernel``, on
+  the ``flash_attention`` kernel (no model calls it, in the port as in
+  the reference): the reference's test shapes, ragged and odd ones, and
+  qwen2.5-3b's attention (16 / 2 heads, head dim 128, causal) in f32 at
+  1024 tokens and in bf16 at the serve path's layer-0 prefill q / k / v
+  and at prompts of 4096 (batch 1) and 2048 (batch 4) tokens.  In bf16
+  the kernel is held to one bf16 ulp of the plain version, and two
+  controls that round P to bf16 (SDPA, and the plain version so changed)
+  must fail that bound.
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after.  Each kernel is held against its plain PyTorch version
@@ -36,6 +46,7 @@ import time
 
 INT8_TOPS = 1979e12      # H100 SXM dense int8 tensor-core peak, op/s
 BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak, FLOP/s
+F32_FLOPS = 67e12        # H100 SXM float32 peak (CUDA cores), FLOP/s
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3 bandwidth, bytes/s
 # end-to-end smm_kernel vs tiled: both run the same decoded weights, but
 # smm_kernel re-quantizes every layer's input activations to int8
@@ -50,6 +61,14 @@ MM_BF16 = (2e-2, 2e-2)
 # codr_matmul lane vs tiled lane logits: the bound of
 # tests/test_transformer_executor.py (f32 accumulation vs bf16 products)
 LANE_REL_TOL = 0.02
+# flash_attention vs its plain version: in f32 the reference's own
+# tolerance (tests/test_kernels.py), since the online softmax sums in
+# another order; in bf16 one bf16 ulp of the plain output (2^-7 of its
+# magnitude), since both compute in f32 and round the output once — a
+# kernel that rounds P to bf16 before P·V (SDPA does) falls outside it,
+# which attention_path checks on two such controls
+FA_F32 = (1e-4, 1e-5)
+FA_BF16 = (2 ** -7, 1e-6)
 SMM_KERNEL = {"name": "smm_conv", "route": "cuda",
               "source": "src/repro_torch/kernels/smm_conv/csrc/smm_conv.cu",
               "replaces": "src/repro/kernels/smm_conv/kernel.py:88"}
@@ -57,6 +76,10 @@ MM_KERNEL = {"name": "codr_matmul", "route": "cuda",
              "source": "src/repro_torch/kernels/codr_matmul/csrc/"
                        "codr_matmul.cu",
              "replaces": "src/repro/kernels/codr_matmul/kernel.py:70"}
+FA_KERNEL = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:67"}
 
 
 def fail(msg: str) -> None:
@@ -375,7 +398,31 @@ def _profile_step(api, params, cfg, tokens) -> dict:
     return out
 
 
-def serve_path(args) -> dict:
+def _layer0_qkv(params, cfg, tokens, cache) -> tuple:
+    """q, k, v of layer 0's attention in the prefill of ``tokens``,
+    computed as ``models.lm.forward`` computes them; k and v are held to
+    the prefill's own cache."""
+    import torch
+
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import lm
+    from repro_torch.models.common import embedding_lookup, norm_apply
+    lp = lm._layer(params["stack"], 0)["b0"]
+    x = embedding_lookup(params["embed"], tokens, lm.DEFAULT_DTYPE)
+    h = norm_apply(x, lp["norm1"], cfg.norm_type, f32=cfg.norm_f32)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    q, k, v = tattn._qkv(lp["mixer"], h, cfg, positions)
+    k0, v0 = cache["stack"]["b0"]
+    if not (torch.equal(k, k0[0]) and torch.equal(v, v0[0])):
+        fail("layer 0's k / v differ from the prefill's cache")
+    return q, k, v
+
+
+def serve_path(args) -> tuple:
+    """The serving path; returns the ``codr_matmul`` row and the q, k, v
+    of layer 0's attention in the main path's prefill."""
     import torch
 
     import repro_torch.api as codr
@@ -417,7 +464,7 @@ def serve_path(args) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.launches = 0
     t0 = time.perf_counter()
-    logits, _ = api.prefill(params, {"tokens": tokens}, cfg)
+    logits, prefill_cache = api.prefill(params, {"tokens": tokens}, cfg)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = ops.launches
@@ -448,6 +495,8 @@ def serve_path(args) -> dict:
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         fail(f"generated tokens {tuple(out.shape)} out of range")
     say(f"serve sample generation (first row): {out[0, :16].tolist()}")
+    qkv = _layer0_qkv(params, cfg, tokens, prefill_cache)
+    del prefill_cache
 
     # -- the kernel at every projection shape, against its plain version
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -568,7 +617,212 @@ def serve_path(args) -> dict:
                            "peak_memory_bytes": peak,
                            "max_abs_err_bf16": err_bf16,
                            "lane_vs_tiled_max_abs_err_f32": lane_err,
-                           "bf16_lanes": bf16_err, "profile": prof})
+                           "bf16_lanes": bf16_err, "profile": prof}), qkv
+
+
+# ---------------------------------------------------------------------------
+# path 3: attention through flash_attention_kernel
+# ---------------------------------------------------------------------------
+
+def _visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(q, k) pairs the function scores: all, or those under the top-left
+    causal mask (row i sees min(i + 1, Sk) keys)."""
+    if not causal:
+        return sq * sk
+    n = min(sq, sk)
+    return n * (n + 1) // 2 + (sq - n) * sk
+
+
+def _fa_close(y, yp) -> tuple:
+    """(within tolerance, max-abs-diff, share of elements beyond it) of
+    an attention output against the plain version's."""
+    import torch
+    rtol, atol = FA_F32 if yp.dtype == torch.float32 else FA_BF16
+    diff = (y.float() - yp.float()).abs()
+    over = diff > atol + rtol * yp.float().abs()
+    return not bool(over.any()), float(diff.max()), float(over.float().mean())
+
+
+def _plain_with_bf16_probabilities(q, k, v, *, causal):
+    """The plain version with P rounded to bf16 before P·V: what a kernel
+    that feeds P to bf16 tensor cores computes (a control for FA_BF16)."""
+    import torch
+    b, s, hq, d = q.shape
+    _, sk, hkv, dv = v.shape
+    qg = q.reshape(b, s, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / d ** 0.5
+    if causal:
+        mask = torch.tril(torch.ones(s, sk, dtype=torch.bool,
+                                     device=q.device))
+        scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1).to(torch.bfloat16).float()
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(b, s, hq, dv).to(q.dtype)
+
+
+def attention_path(args, prefill_qkv) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import full_fp32
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models import attention as tattn
+
+    cfg = get_config("qwen2.5-3b")
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+
+    def rand(b, sq, sk, nq, nkv, d, dv, dtype):
+        return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                     for shape in ((b, sq, nq, d), (b, sk, nkv, d),
+                                   (b, sk, nkv, dv)))
+
+    # (label, (q, k, v), causal): the reference's test shapes both ways;
+    # ragged and odd ones; qwen2.5-3b's attention at the serve path's
+    # layer-0 prefill and at long prompts
+    cases = []
+    for b, s, nq, nkv, d in ((2, 128, 4, 2, 32), (1, 256, 8, 8, 16),
+                             (2, 96, 4, 1, 64)):
+        for causal in (True, False):
+            cases.append((f"reference {(b, s, nq, nkv, d)} "
+                          f"{'causal' if causal else 'full'}",
+                          rand(b, s, s, nq, nkv, d, d, f32), causal))
+    cases += [(f"S={s}", rand(1, s, s, 4, 2, 64, 64, f32), True)
+              for s in (1, 63, 65, 97, 1000)]
+    cases += [("Sq=64 Sk=128", rand(2, 64, 128, 4, 2, 64, 64, f32), True),
+              ("Sq=128 Sk=64", rand(2, 128, 64, 4, 2, 64, 64, f32), True),
+              ("D=32 Dv=16", rand(2, 96, 96, 4, 2, 32, 16, f32), True),
+              ("D=256", rand(1, 130, 130, 4, 2, 256, 256, f32), True),
+              ("qwen2.5-3b f32 B=1 S=1024",
+               rand(1, 1024, 1024, hq, hkv, hd, hd, f32), True),
+              ("qwen2.5-3b layer 0 prefill B=4 S=32", prefill_qkv, True)]
+    cases += [(f"qwen2.5-3b B={b} S={s}", rand(b, s, s, hq, hkv, hd, hd,
+                                                 bf16), True)
+              for b, s in ((1, 4096), (4, 2048))]
+    say(f"attention: {len(cases)} calls of flash_attention_kernel; "
+        f"qwen2.5-3b widths {hq} / {hkv} heads, head dim {hd}, bf16, causal")
+
+    ops.launches = 0
+    rows, outs = [], {}
+    for label, (q, k, v), causal in cases:
+        y = ops.flash_attention_kernel(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        with full_fp32():
+            yp = ref.flash_attention_ref(q, k, v, causal=causal)
+        rtol, atol = FA_F32 if q.dtype == f32 else FA_BF16
+        ok, err, _ = _fa_close(y, yp)
+        say(f"attention {label} q {tuple(q.shape)} k {tuple(k.shape)} v "
+            f"{tuple(v.shape)} {str(q.dtype)[6:]} "
+            f"{'causal' if causal else 'full'}: kernel vs plain max-abs-diff "
+            f"{err:.3e} (rtol {rtol} / atol {atol})")
+        if y.shape != yp.shape or y.dtype != q.dtype \
+                or not bool(torch.isfinite(y.float()).all()):
+            fail(f"attention {label}: output {tuple(y.shape)} {y.dtype} "
+                 f"not finite or not {tuple(yp.shape)} {q.dtype}")
+        if not ok:
+            fail(f"attention {label}: kernel vs plain max-abs {err} beyond "
+                 f"rtol {rtol} / atol {atol}")
+        rows.append({"case": label, "q": list(q.shape), "k": list(k.shape),
+                     "v": list(v.shape), "dtype": str(q.dtype)[6:],
+                     "causal": causal, "max_abs_err": err})
+        outs[label] = y
+    launches = ops.launches
+    say(f"attention launches {launches} in {len(cases)} calls")
+    if launches != len(cases):
+        fail(f"flash_attention launched {launches} times in {len(cases)} "
+             f"calls")
+
+    # layer 0 of the prefill against the model's own chunked attention
+    label = "qwen2.5-3b layer 0 prefill B=4 S=32"
+    q, k, v = prefill_qkv
+    with full_fp32():
+        yc = tattn.flash_attention(q, k, v, causal=True,
+                                   q_chunk=cfg.attn_q_chunk,
+                                   kv_chunk=cfg.attn_kv_chunk,
+                                   acc_dtype=f32 if cfg.attn_f32 else bf16)
+    rtol, atol = FA_BF16
+    ok, err_chunked, _ = _fa_close(outs[label], yc)
+    say(f"attention {label}: kernel vs the model's chunked attention "
+        f"max-abs-diff {err_chunked:.3e} (rtol {rtol} / atol {atol})")
+    if not ok:
+        fail(f"attention {label}: kernel vs chunked attention max-abs "
+             f"{err_chunked}")
+
+    # times at the long prompts and one of the reference's shapes: kernel,
+    # plain version (TF32 off), SDPA in bf16 (library column only; both
+    # top-left causal since Sq = Sk)
+    head_label = "qwen2.5-3b B=1 S=4096"
+    timed = [c for c in cases if c[0].startswith("qwen2.5-3b B=")
+             or c[0] == "reference (2, 128, 4, 2, 32) causal"]
+    per_shape = []
+    for label, (q, k, v), causal in timed:
+        b, sq, nq, d = q.shape
+        _, sk, nkv, dv = v.shape
+        qt, kt, vt = (t.to(bf16).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+
+        def library(qt=qt, kt=kt, vt=vt, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+        def plain(q=q, k=k, v=v, causal=causal):
+            with full_fp32():
+                return ref.flash_attention_ref(q, k, v, causal=causal)
+
+        yp = plain()
+        y_lib = library().transpose(1, 2)
+        lib_err = float((y_lib.float() - yp.float()).abs().max())
+        controls = {}
+        if q.dtype == bf16:
+            # controls: SDPA and the plain version with bf16 P must come
+            # out as not correct under FA_BF16, or the gate cannot tell a
+            # bf16-P kernel from this one
+            with full_fp32():
+                y_p16 = _plain_with_bf16_probabilities(q, k, v,
+                                                       causal=causal)
+            for name, yc in (("sdpa", y_lib), ("bf16_p", y_p16)):
+                ok, c_err, c_over = _fa_close(yc, yp)
+                controls[name] = {"max_abs_err": c_err, "share_beyond": c_over}
+                say(f"attention {label} control {name} vs plain: max-abs-"
+                    f"diff {c_err:.3e}, {c_over:.4f} of elements beyond rtol "
+                    f"{FA_BF16[0]} / atol {FA_BF16[1]} (must be > 0)")
+                if ok:
+                    fail(f"attention {label}: control {name} passes the bf16 "
+                         f"tolerance; it cannot tell a bf16-P kernel apart")
+        n_bytes = (q.numel() + k.numel() + v.numel() + b * sq * nq * dv) \
+            * q.element_size()
+        n_ops = 2 * b * nq * _visible_pairs(sq, sk, causal) * (d + dv)
+        b_ms, b_by = bound(n_bytes, n_ops,
+                           BF16_FLOPS if q.dtype == bf16 else F32_FLOPS)
+        row = {"case": label, "shape": [b, sq, sk, nq, nkv, d, dv],
+               "dtype": str(q.dtype)[6:], "causal": causal,
+               "ms": cuda_ms(lambda: ops.flash_attention_kernel(
+                   q, k, v, causal=causal), 10),
+               "plain_ms": cuda_ms(plain, 3),
+               "library_ms": cuda_ms(library, 20),
+               "library_vs_plain_max_abs": lib_err, "controls": controls,
+               "bytes": n_bytes, "ops": n_ops,
+               "bound_ms": b_ms, "bound_by": b_by}
+        per_shape.append(row)
+        say(f"attention {label} {row['dtype']}: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, SDPA bf16 "
+            f"{row['library_ms']:.4f} ms (vs plain {lib_err:.3e}), bound "
+            f"{b_ms:.4f} ms ({b_by}; {n_ops} flops, {n_bytes} bytes)")
+
+    head = next(r for r in per_shape if r["case"] == head_label)
+    return dict(FA_KERNEL, launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"],
+                per_call="one causal attention at the qwen2.5-3b widths, "
+                         "B = 1, S = 4096 (one layer of a 4096-token "
+                         "prefill); max_abs_err over every case",
+                per_shape=per_shape, cases=rows,
+                chunked_max_abs_err=err_chunked)
 
 
 def main() -> int:
@@ -586,6 +840,7 @@ def main() -> int:
         __file__)), "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.codr_matmul import ops as mm_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.smm_conv import ops as smm_ops
 
     # -- device ------------------------------------------------------------
@@ -599,12 +854,13 @@ def main() -> int:
 
     # -- build: one nvcc per source, started together ----------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         for fut in [pool.submit(smm_ops.load_kernel),
-                    pool.submit(mm_ops.load_kernel)]:
+                    pool.submit(mm_ops.load_kernel),
+                    pool.submit(fa_ops.load_kernel)]:
             fut.result()
-    say(f"build: smm_conv.cu + codr_matmul.cu -> {_build.BUILD_DIR} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    say(f"build: smm_conv.cu + codr_matmul.cu + flash_attention.cu -> "
+        f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
     for log in sorted(_build.BUILD_DIR.glob("lib*.log")):
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -614,8 +870,13 @@ def main() -> int:
     kernels = [cnn_path(args)]
     say(f"cnn path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kernels.append(serve_path(args))
+    row, prefill_qkv = serve_path(args)
+    kernels.append(row)
     say(f"serve path: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(attention_path(args, prefill_qkv))
+    say(f"attention path: {time.perf_counter() - t0:.1f} s")
 
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

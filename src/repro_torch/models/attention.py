@@ -4,9 +4,10 @@ KV-cache decode.
 
 The model's attention is plain PyTorch here, as the reference's is plain
 JAX: the reference models never call the Pallas attention kernel, so
-neither does the port (ROADMAP B3 ports that kernel through its own
-entry point).  Score and accumulator math runs in float32 over bfloat16
-operands (the reference's ``_einsum_f32`` on an executing backend).
+neither does the port (``repro_torch.kernels.flash_attention`` ports
+that kernel behind its own entry point).  Score and accumulator math
+runs in float32 over bfloat16 operands (the reference's ``_einsum_f32``
+on an executing backend).
 The MLA half waits for ROADMAP A5; the paged cache for A6.
 """
 from __future__ import annotations

@@ -36,6 +36,8 @@ def test_port_modules_cover_the_slice():
               "repro_torch.core.engine", "repro_torch.core.backends",
               "repro_torch.kernels.smm_conv.ops",
               "repro_torch.kernels.smm_conv.ref", "repro_torch.kernels._build",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.flash_attention.ref",
               "repro_torch.configs.paper_cnns"):
         assert m in mods
 
