@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's three CUDA kernels from the sources in this checkout
-(``smm_conv.cu``, ``codr_matmul.cu`` and ``flash_attention.cu``: one
-``nvcc`` per source, all three started together) and drives the port's
+Builds the port's CUDA kernels from the sources in this checkout
+(``smm_conv.cu``, ``codr_matmul.cu``, and ``flash_attention.cu`` and
+``flash_attention_sm90.cu``, the two instances of flash attention: one
+``nvcc`` per source, all four started together) and drives the port's
 three paths, each through the entry points a user calls:
 
 * CNN inference from compressed weights (spec → ``compile`` →
@@ -20,10 +21,13 @@ three paths, each through the entry points a user calls:
   the reference): the reference's test shapes, ragged and odd ones, and
   qwen2.5-3b's attention (16 / 2 heads, head dim 128, causal) in f32 at
   1024 tokens and in bf16 at the serve path's layer-0 prefill q / k / v
-  and at prompts of 4096 (batch 1) and 2048 (batch 4) tokens.  In bf16
-  the kernel is held to one bf16 ulp of the plain version, and two
-  controls that round P to bf16 (SDPA, and the plain version so changed)
-  must fail that bound.
+  and at prompts of 4096 (batch 1) and 2048 (batch 4) tokens.  bf16
+  with D = Dv in {64, 128} runs the tensor-core instance (``sm90``),
+  everything else the CUDA-core one (``simt``); the per-instance launch
+  counts are held to what the routing rule predicts.  In bf16 the kernel
+  is held to one bf16 ulp of the plain version, and two controls that
+  round P to bf16 (SDPA, and the plain version so changed) must fail
+  that bound.  At the long prompts both instances are timed.
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after.  Each kernel is held against its plain PyTorch version
@@ -40,6 +44,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -78,7 +83,9 @@ MM_KERNEL = {"name": "codr_matmul", "route": "cuda",
              "replaces": "src/repro/kernels/codr_matmul/kernel.py:70"}
 FA_KERNEL = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                       "flash_attention.cu",
+                       "flash_attention_sm90.cu",
+             "simt_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:67"}
 
 
@@ -701,10 +708,34 @@ def attention_path(args, prefill_qkv) -> dict:
     cases += [(f"qwen2.5-3b B={b} S={s}", rand(b, s, s, hq, hkv, hd, hd,
                                                  bf16), True)
               for b, s in ((1, 4096), (4, 2048))]
+    # bf16 with D = Dv in {64, 128} (the sm90 instance): ragged S against
+    # its 128-row q and 64-row kv tiles, both masks, Sq != Sk both ways,
+    # GQA groups 1 and 2; bf16 at other head dims (the simt instance)
+    cases += [(f"bf16 S={s} D={d} {'causal' if causal else 'full'}",
+               rand(1, s, s, 4, 2, d, d, bf16), causal)
+              for s, d, causal in ((1, 128, True), (63, 64, True),
+                                   (65, 128, False), (1000, 64, True),
+                                   (1000, 128, False))]
+    cases += [("bf16 Sq=64 Sk=300 D=128", rand(2, 64, 300, 4, 2, 128, 128,
+                                               bf16), True),
+              ("bf16 Sq=300 Sk=64 D=64 full", rand(2, 300, 64, 4, 2, 64, 64,
+                                                   bf16), False),
+              ("bf16 GQA group 1 D=128", rand(1, 300, 300, 4, 4, 128, 128,
+                                              bf16), True),
+              ("qwen2.5-3b bf16 B=1 S=4096 full",
+               rand(1, 4096, 4096, hq, hkv, hd, hd, bf16), False),
+              ("bf16 D=256", rand(1, 130, 130, 4, 2, 256, 256, bf16), True),
+              ("bf16 D=128 Dv=64", rand(2, 96, 96, 4, 2, 128, 64, bf16),
+               True)]
+    predicted = dict.fromkeys(ops.IMPLS, 0)
+    for _, (q, _, v), _ in cases:
+        predicted[ops.pick_impl(q.dtype, q.shape[-1], v.shape[-1])] += 1
     say(f"attention: {len(cases)} calls of flash_attention_kernel; "
-        f"qwen2.5-3b widths {hq} / {hkv} heads, head dim {hd}, bf16, causal")
+        f"qwen2.5-3b widths {hq} / {hkv} heads, head dim {hd}, bf16, causal; "
+        f"routing predicts {predicted}")
 
     ops.launches = 0
+    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
     rows, outs = [], {}
     for label, (q, k, v), causal in cases:
         y = ops.flash_attention_kernel(q, k, v, causal=causal)
@@ -713,10 +744,11 @@ def attention_path(args, prefill_qkv) -> dict:
             yp = ref.flash_attention_ref(q, k, v, causal=causal)
         rtol, atol = FA_F32 if q.dtype == f32 else FA_BF16
         ok, err, _ = _fa_close(y, yp)
+        impl = ops.pick_impl(q.dtype, q.shape[-1], v.shape[-1])
         say(f"attention {label} q {tuple(q.shape)} k {tuple(k.shape)} v "
             f"{tuple(v.shape)} {str(q.dtype)[6:]} "
-            f"{'causal' if causal else 'full'}: kernel vs plain max-abs-diff "
-            f"{err:.3e} (rtol {rtol} / atol {atol})")
+            f"{'causal' if causal else 'full'} [{impl}]: kernel vs plain "
+            f"max-abs-diff {err:.3e} (rtol {rtol} / atol {atol})")
         if y.shape != yp.shape or y.dtype != q.dtype \
                 or not bool(torch.isfinite(y.float()).all()):
             fail(f"attention {label}: output {tuple(y.shape)} {y.dtype} "
@@ -726,13 +758,14 @@ def attention_path(args, prefill_qkv) -> dict:
                  f"rtol {rtol} / atol {atol}")
         rows.append({"case": label, "q": list(q.shape), "k": list(k.shape),
                      "v": list(v.shape), "dtype": str(q.dtype)[6:],
-                     "causal": causal, "max_abs_err": err})
+                     "causal": causal, "impl": impl, "max_abs_err": err})
         outs[label] = y
-    launches = ops.launches
-    say(f"attention launches {launches} in {len(cases)} calls")
-    if launches != len(cases):
-        fail(f"flash_attention launched {launches} times in {len(cases)} "
-             f"calls")
+    launches, by_impl = ops.launches, dict(ops.launches_by_impl)
+    say(f"attention launches {launches} in {len(cases)} calls, by instance "
+        f"{by_impl}")
+    if launches != len(cases) or by_impl != predicted:
+        fail(f"flash_attention launched {launches} times ({by_impl}) in "
+             f"{len(cases)} calls; the routing rule predicts {predicted}")
 
     # layer 0 of the prefill against the model's own chunked attention
     label = "qwen2.5-3b layer 0 prefill B=4 S=32"
@@ -797,30 +830,46 @@ def attention_path(args, prefill_qkv) -> dict:
         n_ops = 2 * b * nq * _visible_pairs(sq, sk, causal) * (d + dv)
         b_ms, b_by = bound(n_bytes, n_ops,
                            BF16_FLOPS if q.dtype == bf16 else F32_FLOPS)
+        impl = ops.pick_impl(q.dtype, d, dv)
+
+        def instance(name, q=q, k=k, v=v, causal=causal):
+            return ops.flash_attention_cuda(q, k, v, causal=causal,
+                                            impl=name)
+
         row = {"case": label, "shape": [b, sq, sk, nq, nkv, d, dv],
-               "dtype": str(q.dtype)[6:], "causal": causal,
+               "dtype": str(q.dtype)[6:], "causal": causal, "impl": impl,
                "ms": cuda_ms(lambda: ops.flash_attention_kernel(
                    q, k, v, causal=causal), 10),
+               "simt_ms": (cuda_ms(lambda: instance("simt"), 5)
+                           if impl != "simt" else None),
                "plain_ms": cuda_ms(plain, 3),
                "library_ms": cuda_ms(library, 20),
                "library_vs_plain_max_abs": lib_err, "controls": controls,
                "bytes": n_bytes, "ops": n_ops,
                "bound_ms": b_ms, "bound_by": b_by}
         per_shape.append(row)
-        say(f"attention {label} {row['dtype']}: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, SDPA bf16 "
+        simt = (f", simt instance {row['simt_ms']:.4f} ms "
+                f"({row['simt_ms'] / row['ms']:.1f}x)"
+                if row["simt_ms"] is not None else "")
+        say(f"attention {label} {row['dtype']}: kernel [{impl}] "
+            f"{row['ms']:.4f} ms{simt}, plain {row['plain_ms']:.4f} ms, "
+            f"SDPA bf16 "
             f"{row['library_ms']:.4f} ms (vs plain {lib_err:.3e}), bound "
             f"{b_ms:.4f} ms ({b_by}; {n_ops} flops, {n_bytes} bytes)")
 
     head = next(r for r in per_shape if r["case"] == head_label)
-    return dict(FA_KERNEL, launches=launches,
+    return dict(FA_KERNEL, launches=launches, launches_by_impl=by_impl,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=head["ms"], plain_ms=head["plain_ms"],
+                ms=head["ms"], simt_ms=head["simt_ms"],
+                plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=head["library_ms"],
                 per_call="one causal attention at the qwen2.5-3b widths, "
                          "B = 1, S = 4096 (one layer of a 4096-token "
-                         "prefill); max_abs_err over every case",
+                         "prefill): ms on the sm90 instance it is routed "
+                         "to, simt_ms on the CUDA-core instance; "
+                         "max_abs_err over every case",
+                sm90_info={d: ops.sm90_info(d) for d in ops.SM90_HEAD_DIMS},
                 per_shape=per_shape, cases=rows,
                 chunked_max_abs_err=err_chunked)
 
@@ -854,17 +903,26 @@ def main() -> int:
 
     # -- build: one nvcc per source, started together ----------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         for fut in [pool.submit(smm_ops.load_kernel),
                     pool.submit(mm_ops.load_kernel),
-                    pool.submit(fa_ops.load_kernel)]:
+                    pool.submit(fa_ops.load_kernel, "simt"),
+                    pool.submit(fa_ops.load_kernel, "sm90")]:
             fut.result()
-    say(f"build: smm_conv.cu + codr_matmul.cu + flash_attention.cu -> "
+    say(f"build: smm_conv.cu + codr_matmul.cu + flash_attention.cu + "
+        f"flash_attention_sm90.cu -> "
         f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
     for log in sorted(_build.BUILD_DIR.glob("lib*.log")):
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {log.name.split('-')[0]}: {line.strip()}")
+    sm90_log = _build.log_path(fa_ops.SOURCES["sm90"]).read_text()
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        sm90_log)
+    if not spills or any(int(a) or int(b) for a, b in spills):
+        fail(f"flash_attention_sm90: ptxas reports spills {spills}")
+    say(f"  flash_attention_sm90 per D: " + ", ".join(
+        f"D={d} {fa_ops.sm90_info(d)}" for d in fa_ops.SM90_HEAD_DIMS))
 
     t0 = time.perf_counter()
     kernels = [cnn_path(args)]

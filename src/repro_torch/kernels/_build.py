@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "load_library"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "load_library", "log_path"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +39,17 @@ def _nvcc() -> str:
     return path
 
 
+def _library_path(source: pathlib.Path) -> pathlib.Path:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+
+
+def log_path(source: pathlib.Path) -> pathlib.Path:
+    """The ``nvcc`` log of ``source``'s library (written by its build)."""
+    return _library_path(source).with_suffix(".log")
+
+
 def load_library(source: pathlib.Path) -> ctypes.CDLL:
     """Compile ``source`` (once per content) and load it.
 
@@ -48,9 +59,7 @@ def load_library(source: pathlib.Path) -> ctypes.CDLL:
     temporary name and renames it into place, so concurrent processes
     never load a half-written library.  Different sources build
     concurrently from different threads; one source builds once."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    lib = _library_path(source)
     with _lock:
         if lib in _loaded:
             return _loaded[lib]

@@ -1,5 +1,8 @@
-// Flash attention for Hopper (sm_90a).
+// Flash attention for Hopper (sm_90a): the CUDA-core instance.
 //
+// ops.py routes bfloat16 with D = Dv in {64, 128} to the tensor-core
+// instance, flash_attention_sm90.cu; this kernel takes every other shape
+// and float32.
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py:67
 // (flash_attention_pallas, with _flash_kernel) and the GQA head repeat of
 // its wrapper, src/repro/kernels/flash_attention/ops.py:10.  Same
@@ -56,12 +59,14 @@
 // Bound on the H100: at the qwen2.5-3b widths (Hq 16, Hkv 2, D 128) and
 // S in the thousands the function does ~2 S^2 Hq D flops (causal) on
 // ~S (Hq + Hkv) D bf16 values, so it is bound by operations, at the bf16
-// tensor-core rate of 989 TFLOP/s.  This first kernel does its products
-// with f32 FMAs on the CUDA cores (67 TFLOP/s at most) and reads both
-// operands of every FMA from shared memory, so it sits far above that
-// bound.  Tensor cores (mma.sync / wgmma on bf16 tiles), TMA staging and a
-// warp-specialised pipeline are later work.  The sums run in a fixed
-// order, so two runs on the same inputs give the same bits.
+// tensor-core rate of 989 TFLOP/s.  This kernel does its products with
+// f32 FMAs on the CUDA cores (67 TFLOP/s at most) and reads both operands
+// of every FMA from shared memory, so it sits far above that bound: it
+// keeps float32 within rtol 1e-4 and takes the head dims the tensor-core
+// instance does not.  Tensor cores (wgmma on bf16 tiles), TMA staging and
+// a warp-specialised pipeline are in flash_attention_sm90.cu.  The sums
+// run in a fixed order, so two runs on the same inputs give the same
+// bits.
 //
 // Plain C interface, loaded with ctypes: flash_attention_launch returns
 // cudaGetLastError() after the launch (0 = launched).
