@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from the sources in this checkout
-(``smm_conv.cu``, ``codr_matmul.cu``, and ``flash_attention.cu`` and
-``flash_attention_sm90.cu``, the two instances of flash attention: one
-``nvcc`` per source, all four started together) and drives the port's
-three paths, each through the entry points a user calls:
+(``smm_conv.cu``; ``codr_matmul.cu``, ``codr_matmul_splitk.cu`` and
+``codr_matmul_sm90.cu``, the three instances of the compressed matmul;
+``flash_attention.cu`` and ``flash_attention_sm90.cu``, the two of flash
+attention: one ``nvcc`` per source, all six started together) and drives
+the port's three paths, each through the entry points a user calls:
 
 * CNN inference from compressed weights (spec → ``compile`` →
   ``CompiledModel.run`` on the ``smm_kernel`` backend) at the published
@@ -15,7 +16,13 @@ three paths, each through the entry points a user calls:
 * transformer serving from packed weights (``init_params`` →
   ``compile_params`` → ``prefill`` → greedy ``decode_step`` loop, as
   ``run_serve`` does) at the published widths of qwen2.5-3b, every
-  projection on the ``codr_matmul`` kernel;
+  projection on the ``codr_matmul`` kernel: the prefill (M = 128) on
+  its tensor-core instance (``sm90``), the decode steps (M = 4) on its
+  split-K instance (``splitk``), as the routing rule names them.  Every
+  instance is held to the plain version and timed at each projection
+  shape, at M = 4 and 128 and over M = 4 .. 128 for the routing
+  threshold, and at bits = 16 over M = 17 .. 128 for its own; each
+  one's distance from the float64 product is printed;
 * attention through its own entry point, ``flash_attention_kernel``, on
   the ``flash_attention`` kernel (no model calls it, in the port as in
   the reference): the reference's test shapes, ragged and odd ones, and
@@ -79,8 +86,19 @@ SMM_KERNEL = {"name": "smm_conv", "route": "cuda",
               "replaces": "src/repro/kernels/smm_conv/kernel.py:88"}
 MM_KERNEL = {"name": "codr_matmul", "route": "cuda",
              "source": "src/repro_torch/kernels/codr_matmul/csrc/"
-                       "codr_matmul.cu",
+                       "codr_matmul_splitk.cu",
+             "sources": {i: f"src/repro_torch/kernels/codr_matmul/csrc/{f}"
+                         for i, f in (("simt", "codr_matmul.cu"),
+                                      ("splitk", "codr_matmul_splitk.cu"),
+                                      ("sm90", "codr_matmul_sm90.cu"))},
              "replaces": "src/repro/kernels/codr_matmul/kernel.py:70"}
+# the device kernels of the three codr_matmul instances, by name
+MM_KERNEL_NAMES = re.compile(r"codr_matmul(_splitk|_sm90)?_kernel")
+# the rows of x the routing threshold is measured at
+MM_SWEEP_M = (4, 8, 16, 32, 64, 128)
+# the rows of x at which bits = 16 (which sm90 does not take) is timed
+# above the threshold, on splitk and on the first kernel
+MM_BITS16_M = (17, 32, 64, 96, 128)
 FA_KERNEL = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention_sm90.cu",
@@ -96,6 +114,15 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def clocks() -> str:
+    """The card's SM clock, its maximum, temperature and power draw now
+    (latency-bound kernels move with the clock)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60).stdout.strip()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -118,12 +145,15 @@ def cold_ms(fn, reps: int, flush) -> float:
     """Mean device time of ``fn`` with the L2 cache flushed before each
     call (``flush`` writes a buffer larger than L2), as a projection
     finds it in a decode step: 1.5 GB of other weights pass between two
-    uses of one."""
+    uses of one.  A device-side sleep after the flush (~1 ms) keeps the
+    stream busy while the host issues ``fn``, so no launch time on the
+    host is counted as device time."""
     import torch
     fn()
     total = 0.0
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -386,7 +416,7 @@ def _profile_step(api, params, cfg, tokens) -> dict:
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device = sum(dev_us(e) for e in kernels) / 1e3
-    mm = [e for e in kernels if "codr_matmul_kernel" in e.key]
+    mm = [e for e in kernels if MM_KERNEL_NAMES.search(e.key)]
     out = {"wall_ms": wall, "device_busy_ms": device,
            "codr_matmul_ms": sum(dev_us(e) for e in mm) / 1e3,
            "codr_matmul_launches": sum(e.count for e in mm),
@@ -468,18 +498,22 @@ def serve_path(args) -> tuple:
 
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device="cuda")
+    bits = params["stack"]["b0"]["mixer"]["q_proj"][0].weight.bits
     torch.cuda.reset_peak_memory_stats()
     ops.launches = 0
+    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
     t0 = time.perf_counter()
     logits, prefill_cache = api.prefill(params, {"tokens": tokens}, cfg)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = ops.launches
+    prefill_by_impl = dict(ops.launches_by_impl)
     t0 = time.perf_counter()
     out, _, n_steps = greedy_decode(api, params, tokens, cfg, gen_len)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = ops.launches
+    by_impl = dict(ops.launches_by_impl)
     peak = torch.cuda.max_memory_allocated()
     per_forward = 7 * cfg.n_layers
     ms_step = decode_s / n_steps * 1e3
@@ -495,6 +529,17 @@ def serve_path(args) -> tuple:
         fail(f"codr_matmul launched {prefill_launches} / {launches} times "
              f"over prefill + {n_steps} steps, expected {per_forward} per "
              f"forward")
+    # the routing rule's prediction: prefill at M = batch * prompt, every
+    # decode step at M = batch
+    want_prefill = dict.fromkeys(ops.IMPLS, 0)
+    want_prefill[ops.pick_impl(batch * prompt_len, bits)] += per_forward
+    want = dict(want_prefill)
+    want[ops.pick_impl(batch, bits)] += per_forward * n_steps
+    say(f"serve codr_matmul launches by instance: prefill {prefill_by_impl}, "
+        f"in all {by_impl} (routing predicts {want_prefill} / {want})")
+    if prefill_by_impl != want_prefill or by_impl != want:
+        fail(f"codr_matmul launches by instance {prefill_by_impl} / "
+             f"{by_impl}, the routing rule predicts {want_prefill} / {want}")
     if tuple(logits.shape) != (batch, 1, cfg.vocab_size) \
             or not bool(torch.isfinite(logits.float()).all()):
         fail(f"prefill logits {tuple(logits.shape)} not finite")
@@ -506,10 +551,19 @@ def serve_path(args) -> tuple:
     del prefill_cache
 
     # -- the kernel at every projection shape, against its plain version
+    say(f"serve clocks before the per-shape rows (sm, max sm, temperature, "
+        f"power): {clocks()}")
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def flush():
         flush_buf.zero_()
+
+    # the floor under every row: one launch of a kernel that writes one
+    # float, timed the same way
+    one = torch.zeros(1, device="cuda")
+    launch_floor = cold_ms(one.zero_, 20, flush)
+    say(f"serve launch floor (one-element fill, L2 flushed): "
+        f"{launch_floor:.4f} ms")
 
     layer0 = {name: params["stack"]["b0"][part][name][0]
               for name, part in PROJ.items()}
@@ -526,51 +580,155 @@ def serve_path(args) -> tuple:
         for m in (4, batch * prompt_len):
             x = torch.randn(m, k, generator=xgen, device="cuda")
             xb = x.to(torch.bfloat16)
-            yk = ops.codr_matmul_cuda(x, *args_w, bits=w.bits, n=n)
             with full_fp32():
                 yp = ref.codr_matmul_ref(x, *args_w, bits=w.bits, n=n)
-            err = float((yk - yp).abs().max())
-            rtol, atol = MM_F32
-            if not bool(((yk - yp).abs() <= atol + rtol * yp.abs()).all()):
-                fail(f"codr_matmul {k}x{n} M={m}: kernel vs plain max-abs "
-                     f"{err} beyond rtol {rtol} / atol {atol}")
-            max_err = max(max_err, err)
+            # the exact (float64) product, and the size of one f32
+            # rounding of each output's terms (2^-24 sum |x w| |scale|):
+            # every instance's and the plain version's distance from the
+            # exact product, in those units
+            wx = ref.decode_ref(w.packed, w.table, bits=w.bits, n=n).double()
+            s64 = w.scale.reshape(-1).double()
+            exact = (x.double() @ wx) * s64
+            unit = (2.0 ** -24 * (x.double().abs() @ wx.abs()) * s64.abs()
+                    ).clamp_min(1e-300)
+            del wx
+
+            def units(y, exact=exact, unit=unit):
+                return float(((y.double() - exact).abs() / unit).max())
+            routed = ops.pick_impl(m, w.bits)
+            inst = {}
+            for impl in ops.IMPLS:
+                def call(impl=impl, x=x, args_w=args_w, n=n, bits=w.bits):
+                    return ops.codr_matmul_cuda(x, *args_w, bits=bits, n=n,
+                                                impl=impl)
+                yk = call()
+                err = float((yk - yp).abs().max())
+                rtol, atol = MM_F32
+                if not bool(((yk - yp).abs() <= atol + rtol * yp.abs()).all()):
+                    fail(f"codr_matmul [{impl}] {k}x{n} M={m}: kernel vs "
+                         f"plain max-abs {err} beyond rtol {rtol} / atol "
+                         f"{atol}")
+                if impl != "simt" and not torch.equal(yk, call()):
+                    fail(f"codr_matmul [{impl}] {k}x{n} M={m}: two calls "
+                         f"differ (the split-K sum must be in a fixed order)")
+                max_err = max(max_err, err)
+                inst[impl] = {"ms": cold_ms(call, 20, flush),
+                              "max_abs_err": err, "f64_units": units(yk)}
             n_bytes = x.numel() * 4 + w.packed.numel() * 4 \
                 + w.table.numel() * 4 + 4 + m * n * 4
             b_ms, b_by = bound(n_bytes, 2 * m * k * n, BF16_FLOPS)
             with full_fp32():
                 row = {"proj": "/".join(names), "m": m, "k": k, "n": n,
-                       "bits": w.bits, "max_abs_err": err,
-                       "ms": cold_ms(lambda: ops.codr_matmul_cuda(
-                           x, *args_w, bits=w.bits, n=n), 20, flush),
+                       "bits": w.bits, "impl": routed,
+                       "max_abs_err": inst[routed]["max_abs_err"],
+                       "ms": inst[routed]["ms"],
+                       "simt_ms": inst["simt"]["ms"], "instances": inst,
                        "plain_ms": cold_ms(lambda: ref.codr_matmul_ref(
                            x, *args_w, bits=w.bits, n=n), 5, flush),
                        "library_ms": cold_ms(lambda: torch.matmul(xb, wd),
                                              20, flush),
+                       "plain_f64_units": units(yp),
                        "bytes": n_bytes, "ops": 2 * m * k * n,
                        "bound_ms": b_ms, "bound_by": b_by}
+            del exact, unit
             rows.append(row)
             ms_by[(k, n, m)] = row
             say(f"serve codr_matmul {row['proj']} {k}x{n} M={m} "
-                f"({w.bits}-bit): kernel {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, torch.matmul bf16 "
+                f"({w.bits}-bit): routed [{routed}] {row['ms']:.4f} ms; "
+                + ", ".join(f"{i} {v['ms']:.4f}" for i, v in inst.items())
+                + f" ms; plain {row['plain_ms']:.4f} ms, torch.matmul bf16 "
                 f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"max-abs-diff {err:.3e}")
+                f"max-abs-diff {row['max_abs_err']:.3e}; from the float64 "
+                f"product, in f32 roundings of the terms: "
+                + ", ".join(f"{i} {v['f64_units']:.3f}"
+                            for i, v in inst.items())
+                + f", plain {row['plain_f64_units']:.3f}")
+
+    say(f"serve clocks after the per-shape rows: {clocks()}")
+
+    # -- the routing threshold: splitk and sm90 over M, per decode-step mix
+    # of projections (q/o, k/v, up/gate twice each, down once)
+    sweep = []
+    for m in MM_SWEEP_M:
+        step = {"m": m, "splitk": 0.0, "sm90": 0.0}
+        for (k, n), names in shapes.items():
+            w = layer0[names[0]].weight
+            args_w = (w.packed, w.table, w.scale.reshape(-1))
+            x = torch.randn(m, k, generator=xgen, device="cuda")
+            for impl in ("splitk", "sm90"):
+                t = cold_ms(lambda: ops.codr_matmul_cuda(
+                    x, *args_w, bits=w.bits, n=n, impl=impl), 10, flush)
+                step[f"{impl} {k}x{n}"] = t
+                step[impl] += t * len(names)
+        step["faster"] = min(("splitk", "sm90"), key=lambda i: step[i])
+        step["routed"] = ops.pick_impl(m, bits)
+        sweep.append(step)
+        say(f"serve codr_matmul threshold M={m}: one layer's 7 projections "
+            f"splitk {step['splitk']:.4f} ms, sm90 {step['sm90']:.4f} ms "
+            f"(faster: {step['faster']}, routed: {step['routed']})")
+
+    # -- bits = 16 above the threshold: the routed instance (splitk) and
+    # the first kernel on random 16-bit packs of the projection shapes,
+    # their table at the model init's weight scale (1 / sqrt(K)), both
+    # held to the plain version, timed per layer's 7 projections
+    bits16 = []
+    for m in MM_BITS16_M:
+        step = {"m": m, "routed": ops.pick_impl(m, 16), "splitk": 0.0,
+                "simt": 0.0}
+        for (k, n), names in shapes.items():
+            packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (k, n // 2),
+                                   generator=xgen, device="cuda",
+                                   dtype=torch.int32)
+            table = torch.randn(1 << 16, generator=xgen,
+                                device="cuda") / k ** 0.5
+            one_s = torch.ones(1, device="cuda")
+            x = torch.randn(m, k, generator=xgen, device="cuda")
+            with full_fp32():
+                yp = ref.codr_matmul_ref(x, packed, table, one_s, bits=16,
+                                         n=n)
+            for impl in ("splitk", "simt"):
+                def call(impl=impl, x=x, packed=packed, table=table, n=n):
+                    return ops.codr_matmul_cuda(x, packed, table, one_s,
+                                                bits=16, n=n, impl=impl)
+                yk = call()
+                rtol, atol = MM_F32
+                if not bool(((yk - yp).abs() <= atol + rtol * yp.abs()
+                             ).all()):
+                    fail(f"codr_matmul [{impl}] bits=16 {k}x{n} M={m}: "
+                         f"kernel vs plain max-abs "
+                         f"{float((yk - yp).abs().max())}")
+                t = cold_ms(call, 10, flush)
+                step[f"{impl} {k}x{n}"] = t
+                step[impl] += t * len(names)
+            del packed, table
+        step["faster"] = min(("splitk", "simt"), key=lambda i: step[i])
+        bits16.append(step)
+        say(f"serve codr_matmul bits=16 M={m}: one layer's 7 projections "
+            f"splitk {step['splitk']:.4f} ms, simt {step['simt']:.4f} ms "
+            f"(faster: {step['faster']}, routed: {step['routed']}); per "
+            f"shape "
+            + ", ".join(f"{key} {v:.4f}" for key, v in step.items()
+                        if " " in key))
+
     # one bfloat16 case (activations and table), held at 2e-2
     w = layer0["q_proj"].weight
-    xb = torch.randn(4, w.shape[0], generator=xgen, device="cuda").to(
-        torch.bfloat16)
     tb = w.table.to(torch.bfloat16)
-    yk = ops.codr_matmul_cuda(xb, w.packed, tb, w.scale.reshape(-1),
-                              bits=w.bits, n=w.shape[1]).float()
-    yp = ref.codr_matmul_ref(xb, w.packed, tb, w.scale.reshape(-1),
-                             bits=w.bits, n=w.shape[1]).float()
     rtol, atol = MM_BF16
-    err_bf16 = float((yk - yp).abs().max())
-    say(f"serve codr_matmul bf16 {w.shape[0]}x{w.shape[1]} M=4: kernel vs "
-        f"plain max-abs-diff {err_bf16:.3e} (rtol {rtol} / atol {atol})")
-    if not bool(((yk - yp).abs() <= atol + rtol * yp.abs()).all()):
-        fail(f"codr_matmul bf16: kernel vs plain max-abs {err_bf16}")
+    err_bf16 = 0.0
+    for m in (4, batch * prompt_len):
+        xm = torch.randn(m, w.shape[0], generator=xgen, device="cuda").to(
+            torch.bfloat16)
+        yk = ops.codr_matmul_cuda(xm, w.packed, tb, w.scale.reshape(-1),
+                                  bits=w.bits, n=w.shape[1]).float()
+        yp = ref.codr_matmul_ref(xm, w.packed, tb, w.scale.reshape(-1),
+                                 bits=w.bits, n=w.shape[1]).float()
+        err = float((yk - yp).abs().max())
+        err_bf16 = max(err_bf16, err)
+        say(f"serve codr_matmul bf16 {w.shape[0]}x{w.shape[1]} M={m} "
+            f"[{ops.pick_impl(m, w.bits)}]: kernel vs plain max-abs-diff "
+            f"{err:.3e} (rtol {rtol} / atol {atol})")
+        if not bool(((yk - yp).abs() <= atol + rtol * yp.abs()).all()):
+            fail(f"codr_matmul bf16 M={m}: kernel vs plain max-abs {err}")
 
     # -- the same packs on the tiled lane, teacher-forced: the lanes are
     # compared in float32 activations, where they differ only by the
@@ -604,16 +762,35 @@ def serve_path(args) -> tuple:
     prof = _profile_step(api, params, cfg, tokens)
 
     # per decode step: every projection of every layer at M = 4
-    fwd = {key: sum(ms_by[(k, n, 4)][key] * len(names) * cfg.n_layers
-                    for (k, n), names in shapes.items())
-           for key in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
+    keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bytes", "ops")
+    fwd, pre = ({key: sum(ms_by[(k, n, m)][key] * len(names) * cfg.n_layers
+                          for (k, n), names in shapes.items())
+                 for key in keys} for m in (batch, batch * prompt_len))
     b_ms, b_by = bound(fwd["bytes"], fwd["ops"], BF16_FLOPS)
-    return dict(MM_KERNEL, launches=launches, max_abs_err=max_err,
+    say(f"serve codr_matmul one decode step (M={batch}, {per_forward} "
+        f"launches, sums of the per-shape rows): routed "
+        f"[{ops.pick_impl(batch, bits)}] {fwd['ms']:.4f} ms, simt "
+        f"{fwd['simt_ms']:.4f} ms ({fwd['simt_ms'] / fwd['ms']:.1f}x), "
+        f"plain {fwd['plain_ms']:.4f} ms, torch.matmul bf16 "
+        f"{fwd['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); prefill "
+        f"(M={batch * prompt_len}): routed "
+        f"[{ops.pick_impl(batch * prompt_len, bits)}] {pre['ms']:.4f} ms, "
+        f"simt {pre['simt_ms']:.4f} ms, plain {pre['plain_ms']:.4f} ms, "
+        f"torch.matmul bf16 {pre['library_ms']:.4f} ms")
+    return dict(MM_KERNEL, launches=launches, launches_by_impl=by_impl,
+                max_abs_err=max_err,
                 ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=b_ms,
                 bound_by=b_by, library_ms=fwd["library_ms"],
+                simt_ms=fwd["simt_ms"],
                 per_forward=f"sums over the {per_forward} launches of one "
                             f"decode step (M = {batch}), L2 flushed before "
-                            f"each launch",
+                            f"each launch: ms on the routed instance "
+                            f"({ops.pick_impl(batch, bits)}), simt_ms on "
+                            f"the first kernel; max_abs_err over every "
+                            f"instance and shape",
+                prefill={key: pre[key] for key in keys},
+                launch_floor_ms=launch_floor,
+                threshold_sweep=sweep, bits16_sweep=bits16,
                 per_shape=rows,
                 main_path={"prefill_ms": prefill_ms, "decode_s": decode_s,
                            "ms_per_step": ms_step, "generated_tok_s": tok_s,
@@ -622,6 +799,7 @@ def serve_path(args) -> tuple:
                            "dense_bf16_bytes": compiled.dense_bf16_bytes(),
                            "bits_per_weight": compiled.bits_per_weight(),
                            "peak_memory_bytes": peak,
+                           "prefill_launches_by_impl": prefill_by_impl,
                            "max_abs_err_bf16": err_bf16,
                            "lane_vs_tiled_max_abs_err_f32": lane_err,
                            "bf16_lanes": bf16_err, "profile": prof}), qkv
@@ -903,19 +1081,35 @@ def main() -> int:
 
     # -- build: one nvcc per source, started together ----------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    sources = [smm_ops.SOURCE, *mm_ops.SOURCES.values(),
+               *fa_ops.SOURCES.values()]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(smm_ops.load_kernel),
-                    pool.submit(mm_ops.load_kernel),
+                    *(pool.submit(mm_ops.load_kernel, i)
+                      for i in mm_ops.IMPLS),
                     pool.submit(fa_ops.load_kernel, "simt"),
                     pool.submit(fa_ops.load_kernel, "sm90")]:
             fut.result()
-    say(f"build: smm_conv.cu + codr_matmul.cu + flash_attention.cu + "
-        f"flash_attention_sm90.cu -> "
+    say(f"build: {' + '.join(p.name for p in sources)} -> "
         f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
-    for log in sorted(_build.BUILD_DIR.glob("lib*.log")):
-        for line in log.read_text().splitlines():
+    for src in sources:
+        text = _build.log_path(src).read_text()
+        if src in (mm_ops.SOURCES["splitk"], mm_ops.SOURCES["sm90"]):
+            # many template instances: one summary line a source
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                                text)]
+            smem = [int(b) for b in re.findall(r"(\d+) bytes smem", text)]
+            spill = [(int(a), int(b)) for a, b in re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+            say(f"  ptxas {src.name}: {len(regs)} kernels, registers "
+                f"{min(regs)}..{max(regs)}, static smem up to "
+                f"{max(smem, default=0)} bytes (dynamic smem set at launch), "
+                f"spills in {sum(1 for a, b in spill if a or b)} kernels, "
+                f"at most {max((a for a, _ in spill), default=0)} bytes")
+            continue
+        for line in text.splitlines():
             if "registers" in line or "spill" in line:
-                say(f"  ptxas {log.name.split('-')[0]}: {line.strip()}")
+                say(f"  ptxas {src.stem}: {line.strip()}")
     sm90_log = _build.log_path(fa_ops.SOURCES["sm90"]).read_text()
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         sm90_log)
