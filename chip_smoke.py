@@ -4,15 +4,24 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from the sources in this checkout
-(``smm_conv.cu``; ``codr_matmul.cu``, ``codr_matmul_splitk.cu`` and
-``codr_matmul_sm90.cu``, the three instances of the compressed matmul;
+(``smm_conv.cu`` and ``smm_conv_sm90.cu``, the two instances of the SMM
+convolution; ``codr_matmul.cu``, ``codr_matmul_splitk.cu`` and
+``codr_matmul_sm90.cu``, the three of the compressed matmul;
 ``flash_attention.cu`` and ``flash_attention_sm90.cu``, the two of flash
-attention: one ``nvcc`` per source, all six started together) and drives
-the port's three paths, each through the entry points a user calls:
+attention: one ``nvcc`` per source, all seven started together) and
+drives the port's three paths, each through the entry points a user
+calls:
 
 * CNN inference from compressed weights (spec → ``compile`` →
   ``CompiledModel.run`` on the ``smm_kernel`` backend) at the published
-  widths of VGG16, on the ``smm_conv`` kernel;
+  widths of VGG16, on the ``smm_conv`` kernel: every layer (stride 1,
+  int8 weights) on its tensor-core instance (``sm90``), as the routing
+  rule names it, and the launches by instance held to that rule.  Each
+  layer's call is replayed on both instances and held to the plain
+  version (max-abs-diff 0), at the main path's sizes and at VGG16's
+  published input sizes, and timed beside ``F.conv2d`` in fp32 and in
+  TF32; AlexNet conv1 and GoogLeNet conv1 (strided, ``simt`` only) are
+  held to the plain version too;
 * transformer serving from packed weights (``init_params`` →
   ``compile_params`` → ``prefill`` → greedy ``decode_step`` loop, as
   ``run_serve`` does) at the published widths of qwen2.5-3b, every
@@ -48,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -82,8 +92,14 @@ LANE_REL_TOL = 0.02
 FA_F32 = (1e-4, 1e-5)
 FA_BF16 = (2 ** -7, 1e-6)
 SMM_KERNEL = {"name": "smm_conv", "route": "cuda",
-              "source": "src/repro_torch/kernels/smm_conv/csrc/smm_conv.cu",
+              "source": "src/repro_torch/kernels/smm_conv/csrc/"
+                        "smm_conv_sm90.cu",
+              "sources": {i: f"src/repro_torch/kernels/smm_conv/csrc/{f}"
+                          for i, f in (("simt", "smm_conv.cu"),
+                                       ("sm90", "smm_conv_sm90.cu"))},
               "replaces": "src/repro/kernels/smm_conv/kernel.py:88"}
+# the device kernels of the two smm_conv instances, by name
+SMM_KERNEL_NAMES = re.compile(r"smm_conv(_sm90)?_kernel")
 MM_KERNEL = {"name": "codr_matmul", "route": "cuda",
              "source": "src/repro_torch/kernels/codr_matmul/csrc/"
                        "codr_matmul_splitk.cu",
@@ -172,9 +188,64 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float) -> tuple:
                                        else "bytes")
 
 
+@contextlib.contextmanager
+def cudnn_tf32():
+    """cuDNN's float32 convolutions in TF32 with its autotuner on: exact
+    on integer-valued inputs and int8 weights while |sums| < 2^24."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 # ---------------------------------------------------------------------------
 # path 1: CNN inference on smm_conv (VGG16 conv1_1 .. conv3_3)
 # ---------------------------------------------------------------------------
+
+def _profile_request(compiled, x) -> dict:
+    """One steady request under ``torch.profiler``: wall time, device-busy
+    time, the smm_conv kernels' share and the host's op time.  The
+    profiler adds host time of its own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        compiled.run(x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(_device_us(e) for e in kernels) / 1e3
+    smm = [e for e in kernels if SMM_KERNEL_NAMES.search(e.key)]
+    out = {"wall_ms": wall, "device_busy_ms": device,
+           "smm_conv_ms": sum(_device_us(e) for e in smm) / 1e3,
+           "smm_conv_launches": sum(e.count for e in smm),
+           "device_kernels": sum(e.count for e in kernels),
+           "host_op_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
+           "top": sorted(([e.key[:60], _device_us(e) / 1e3, e.count]
+                          for e in kernels), key=lambda r: -r[1])[:6]}
+    idle = ("not measured (no device events)" if device == 0 else
+            f"{max(0.0, 1 - device / wall):.3f}")
+    say(f"cnn profile, one steady request: wall {wall:.3f} ms, device busy "
+        f"{device:.3f} ms (idle share {idle}), smm_conv "
+        f"{out['smm_conv_ms']:.3f} ms over {out['smm_conv_launches']} "
+        f"launches, {out['device_kernels']} kernels in all, host op time "
+        f"{out['host_op_ms']:.3f} ms; top kernels [name, ms, count]: "
+        f"{out['top']}")
+    return out
+
 
 def cnn_path(args) -> dict:
     import numpy as np
@@ -208,14 +279,19 @@ def cnn_path(args) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     ops.launches = 0
-    outs, req_ms = [], []
+    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+    outs, req_ms, per_request = [], [], []
     for x in images:
+        before = dict(ops.launches_by_impl)
         t0 = time.perf_counter()
         y = compiled.run(x)
         torch.cuda.synchronize()
         req_ms.append((time.perf_counter() - t0) * 1e3)
+        per_request.append({i: ops.launches_by_impl[i] - before[i]
+                            for i in ops.IMPLS})
         outs.append(y)
     launches = ops.launches
+    by_impl = dict(ops.launches_by_impl)
     peak = torch.cuda.max_memory_allocated()
     for i, ms in enumerate(req_ms):
         say(f"cnn request {i}: batch {batch}, {ms:.3f} ms"
@@ -232,53 +308,111 @@ def cnn_path(args) -> dict:
         if tuple(y.shape) != out_shape or not bool(torch.isfinite(y).all()):
             fail(f"output {tuple(y.shape)} not finite {out_shape}")
 
-    rows, max_err = [], 0.0
+    # the routing rule at each layer's main-path call
+    rule, ri, ci = [], 226, 226
+    for layer in compiled.model.layers:
+        deltas, _, meta = layer.smm_operands()
+        ro, co = layer.out_hw(ri, ci)
+        rule.append(ops.pick_impl(
+            (batch, layer.code.shape[1], ri, ci), tuple(deltas.shape),
+            t_m=meta["t_m"], ro=ro, co=co, stride=layer.stride,
+            int8_weights=meta["int8_weights"]))
+        ri, ci = ro, co
+    want = {i: rule.count(i) for i in ops.IMPLS}
+    say(f"cnn launches by instance: per request {per_request}, in all "
+        f"{by_impl}; the rule names {rule} per request")
+    if any(r != want for r in per_request) or \
+            by_impl != {i: n * n_requests for i, n in want.items()}:
+        fail(f"smm_conv launches by instance {per_request} / {by_impl} "
+             f"differ from the routing rule's {want} per request")
+    profile = _profile_request(compiled, images[1])
+
+    def layer_row(label, layer, xin, ri, ci):
+        """Every instance that takes the call against the plain version
+        (max-abs-diff 0) and timed, beside cuDNN in fp32 and in TF32."""
+        deltas, entries, meta = layer.smm_operands()
+        ro, co = layer.out_hw(ri, ci)
+        kw = dict(t_m=meta["t_m"], ro=ro, co=co, stride=layer.stride)
+        flag = meta["int8_weights"]
+        routed = ops.pick_impl(tuple(xin.shape), tuple(deltas.shape),
+                               int8_weights=flag, **kw)
+        yp = ref.smm_conv_plain(xin, deltas, entries, **kw)
+        m, n, rk, ck = layer.code.shape
+        errs, times = {}, {}
+        for impl in ops.IMPLS:
+            if impl == "sm90" and ops.sm90_refusal(
+                    tuple(xin.shape), tuple(deltas.shape), int8_weights=flag,
+                    **kw):
+                continue
+
+            def call(impl=impl):
+                return ops.smm_conv_cuda(xin, deltas, entries, impl=impl,
+                                         int8_weights=flag, **kw)
+            errs[impl] = float((call() - yp).abs().max())
+            if errs[impl] != 0.0:
+                fail(f"{label} {layer.name}: {impl} vs plain max-abs-diff "
+                     f"{errs[impl]}")
+            times[impl] = cuda_ms(call, 5)
+        w_int = torch.from_numpy(layer.decoded_weights().astype(
+            np.float32)).cuda()
+        w = torch.from_numpy(layer.decoded_weights().astype(np.float32)
+                             * layer.scale).cuda()
+
+        def fp32(xin=xin, w=w, s=layer.stride):
+            with full_fp32():
+                return F.conv2d(xin, w, stride=s)
+
+        def tf32(xin=xin, w=w_int, s=layer.stride):
+            with cudnn_tf32():
+                return F.conv2d(xin, w, stride=s)
+        tf32_err = float((tf32() - yp[:, :m]).abs().max())
+        st = layer.stats()
+        b = xin.shape[0]
+        n_bytes = 4 * (xin.numel() + deltas.numel() + entries.numel()
+                       + b * m * ro * co)
+        n_ops = 2 * b * st.n_nonzero * ro * co
+        b_ms, b_by = bound(n_bytes, n_ops, INT8_TOPS)
+        row = {"layer": layer.name, "size": label,
+               "shape": [m, n, rk, ck, ri, ci, layer.stride, b],
+               "impl": routed, "max_abs_err": max(errs.values()),
+               "ms": times[routed],
+               **{f"{i}_ms": times.get(i) for i in ops.IMPLS},
+               "plain_ms": cuda_ms(lambda: ref.smm_conv_plain(
+                   xin, deltas, entries, **kw), 2),
+               "library_ms": cuda_ms(fp32, 5),
+               "library_tf32_ms": cuda_ms(tf32, 5),
+               "library_tf32_max_abs_diff": tf32_err,
+               "ops": n_ops, "bytes": n_bytes,
+               "bound_ms": b_ms, "bound_by": b_by}
+        inst = ", ".join(f"{i} {t:.4f} ms" for i, t in times.items())
+        say(f"cnn {label} {layer.name} {row['shape']}: [{routed}] {inst}, "
+            f"plain {row['plain_ms']:.4f} ms, F.conv2d fp32 "
+            f"{row['library_ms']:.4f} ms, F.conv2d TF32 "
+            f"{row['library_tf32_ms']:.4f} ms (vs plain {tf32_err}), bound "
+            f"{b_ms:.4f} ms ({b_by}), max-abs-diff {row['max_abs_err']}")
+        return row, ro, co
+
+    rows = []
     x = compiled.model.as_input(images[0])
     ri = ci = 226
     for layer in compiled.model.layers:
         xi, _ = _int_activations(x)
-        xin = xi.permute(0, 3, 1, 2).contiguous()
-        deltas, entries, meta = layer.smm_operands()
-        ro, co = layer.out_hw(ri, ci)
-        kw = dict(t_m=meta["t_m"], ro=ro, co=co, stride=layer.stride)
-        yk = ops.smm_conv_cuda(xin, deltas, entries, **kw)
-        yp = ref.smm_conv_plain(xin, deltas, entries, **kw)
-        err = float((yk - yp).abs().max())
-        max_err = max(max_err, err)
-        if err != 0.0:
-            fail(f"{layer.name}: kernel vs plain max-abs-diff {err}")
-        w = torch.from_numpy(layer.decoded_weights().astype(np.float32)
-                             * layer.scale).cuda()
-
-        def library(xin=xin, w=w, s=layer.stride):
-            with full_fp32():
-                return F.conv2d(xin, w, stride=s)
-
-        st = layer.stats()
-        m, n, rk, ck = layer.code.shape
-        n_bytes = 4 * (xin.numel() + deltas.numel() + entries.numel()
-                       + yk.numel())
-        n_ops = 2 * batch * st.n_nonzero * ro * co
-        b_ms, b_by = bound(n_bytes, n_ops, INT8_TOPS)
-        row = {"layer": layer.name, "shape": [m, n, rk, ck, ri, ci,
-                                              layer.stride],
-               "max_abs_err": err,
-               "ms": cuda_ms(lambda: ops.smm_conv_cuda(xin, deltas, entries,
-                                                       **kw), 5),
-               "plain_ms": cuda_ms(lambda: ref.smm_conv_plain(
-                   xin, deltas, entries, **kw), 2),
-               "library_ms": cuda_ms(library, 5),
-               "ops": n_ops, "bytes": n_bytes,
-               "bound_ms": b_ms, "bound_by": b_by}
+        row, ro, co = layer_row("main", layer,
+                                xi.permute(0, 3, 1, 2).contiguous(), ri, ci)
         rows.append(row)
-        say(f"cnn {layer.name} {row['shape']}: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, F.conv2d "
-            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), max-abs-diff {err}")
         x = compiled.backend.conv(layer, x)
         ri, ci = ro, co
     if not torch.equal(x, outs[0]):
         fail("layer-by-layer replay of request 0 differs from the main path")
+    # the same layers at VGG16's published input sizes (226 / 114 / 58):
+    # the main path chains VALID convolutions without pooling
+    pub_rng = np.random.default_rng(args.seed + 3)
+    published = []
+    for layer, s in zip(compiled.model.layers, shapes):
+        xin = torch.from_numpy(pub_rng.integers(-127, 128, size=(
+            batch, s.n, s.ri, s.ci)).astype(np.float32)).cuda()
+        published.append(layer_row("published", layer, xin, s.ri, s.ci)[0])
+    max_err = max(r["max_abs_err"] for r in rows + published)
 
     for net, s in (("alexnet conv1", ALEXNET[0]),
                    ("googlenet conv1", GOOGLENET[0])):
@@ -289,15 +423,24 @@ def cnn_path(args) -> dict:
         xs = torch.from_numpy(rng.integers(-127, 128, size=(
             batch, s.n, s.ri, s.ci)).astype(np.float32)).cuda()
         deltas, entries, meta = ops.smm_operands_on(code, s.n, "cuda")
-        kw = dict(t_m=meta["t_m"], ro=s.ro, co=s.co, stride=s.stride)
-        err = float((ops.smm_conv_cuda(xs, deltas, entries, **kw)
-                     - ref.smm_conv_plain(xs, deltas, entries, **kw))
-                    .abs().max())
-        max_err = max(max_err, err)
-        say(f"cnn {net} ({s.rk}x{s.rk}, stride {s.stride}, {s.ri}^2): "
-            f"kernel vs plain max-abs-diff {err}")
-        if err != 0.0:
-            fail(f"{net}: kernel vs plain max-abs-diff {err}")
+        kw = dict(t_m=meta["t_m"], ro=s.ro, co=s.co, stride=s.stride,
+                  int8_weights=meta["int8_weights"])
+        routed = ops.pick_impl(tuple(xs.shape), tuple(deltas.shape), **kw)
+        why = ops.sm90_refusal(tuple(xs.shape), tuple(deltas.shape), **kw)
+        yp = ref.smm_conv_plain(xs, deltas, entries, t_m=meta["t_m"],
+                                ro=s.ro, co=s.co, stride=s.stride)
+        for impl in ops.IMPLS:
+            if impl == "sm90" and why:
+                say(f"cnn {net}: sm90 does not take it ({why})")
+                continue
+            err = float((ops.smm_conv_cuda(xs, deltas, entries, impl=impl,
+                                           **kw) - yp).abs().max())
+            max_err = max(max_err, err)
+            say(f"cnn {net} ({s.rk}x{s.rk}, stride {s.stride}, {s.ri}^2): "
+                f"{impl}{' (routed)' if impl == routed else ''} vs plain "
+                f"max-abs-diff {err}")
+            if err != 0.0:
+                fail(f"{net}: {impl} vs plain max-abs-diff {err}")
 
     y_tiled = compiled.run(images[0], backend="tiled")
     y_qref = compiled.quantized_reference(images[0])
@@ -314,16 +457,25 @@ def cnn_path(args) -> dict:
 
     b_ms, b_by = bound(sum(r["bytes"] for r in rows),
                        sum(r["ops"] for r in rows), INT8_TOPS)
-    return dict(SMM_KERNEL, launches=launches, max_abs_err=max_err,
-                ms=sum(r["ms"] for r in rows),
-                plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=sum(r["library_ms"] for r in rows),
+    sums = {k: sum(r[k] for r in rows)
+            for k in ("ms", "simt_ms", "plain_ms", "library_ms",
+                      "library_tf32_ms")}
+    say(f"cnn one request's 7 launches: routed {sums['ms']:.4f} ms, simt "
+        f"{sums['simt_ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
+        f"F.conv2d fp32 {sums['library_ms']:.4f} ms, TF32 "
+        f"{sums['library_tf32_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(SMM_KERNEL, launches=launches, launches_by_impl=by_impl,
+                launches_per_request=per_request, max_abs_err=max_err,
+                **sums, bound_ms=b_ms, bound_by=b_by,
                 per_request="sums over the 7 main-path launches of one "
-                            "request (batch 4)",
-                per_shape=rows,
+                            "request (batch 4): ms on the routed instance, "
+                            "simt_ms on the first kernel, library_ms "
+                            "F.conv2d fp32 on the scaled weights, "
+                            "library_tf32_ms F.conv2d TF32 (cudnn.benchmark) "
+                            "on the integer weights",
+                per_shape=rows, published=published,
                 main_path={"request_ms": req_ms, "encode_s": encode_s,
-                           "peak_memory_bytes": peak})
+                           "peak_memory_bytes": peak, "profile": profile})
 
 
 # ---------------------------------------------------------------------------
@@ -407,22 +559,18 @@ def _profile_step(api, params, cfg, tokens) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     events = prof.key_averages()
     # device kernels only: an op's row repeats its kernels' time
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    device = sum(dev_us(e) for e in kernels) / 1e3
+    device = sum(_device_us(e) for e in kernels) / 1e3
     mm = [e for e in kernels if MM_KERNEL_NAMES.search(e.key)]
     out = {"wall_ms": wall, "device_busy_ms": device,
-           "codr_matmul_ms": sum(dev_us(e) for e in mm) / 1e3,
+           "codr_matmul_ms": sum(_device_us(e) for e in mm) / 1e3,
            "codr_matmul_launches": sum(e.count for e in mm),
            "device_kernels": sum(e.count for e in kernels),
            "host_op_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
-           "top": sorted(([e.key[:60], dev_us(e) / 1e3, e.count]
+           "top": sorted(([e.key[:60], _device_us(e) / 1e3, e.count]
                           for e in kernels), key=lambda r: -r[1])[:6]}
     idle = ("not measured (no device events)" if device == 0 else
             f"{max(0.0, 1 - device / wall):.3f}")
@@ -1081,10 +1229,11 @@ def main() -> int:
 
     # -- build: one nvcc per source, started together ----------------------
     t0 = time.perf_counter()
-    sources = [smm_ops.SOURCE, *mm_ops.SOURCES.values(),
+    sources = [*smm_ops.SOURCES.values(), *mm_ops.SOURCES.values(),
                *fa_ops.SOURCES.values()]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        for fut in [pool.submit(smm_ops.load_kernel),
+        for fut in [*(pool.submit(smm_ops.load_kernel, i)
+                      for i in smm_ops.IMPLS),
                     *(pool.submit(mm_ops.load_kernel, i)
                       for i in mm_ops.IMPLS),
                     pool.submit(fa_ops.load_kernel, "simt"),
@@ -1108,8 +1257,12 @@ def main() -> int:
                 f"at most {max((a for a, _ in spill), default=0)} bytes")
             continue
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 say(f"  ptxas {src.stem}: {line.strip()}")
+        injected = text.count("warpgroup.arrive is injected")
+        if injected:
+            say(f"  ptxas {src.stem}: warpgroup.arrive injected {injected} "
+                f"times (C7519)")
     sm90_log = _build.log_path(fa_ops.SOURCES["sm90"]).read_text()
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         sm90_log)

@@ -44,7 +44,10 @@
 // per output-channel tile and writes each output once, but it runs the
 // 2*nnz operations per pixel on the CUDA cores, one int32 multiply-add
 // and one shared-memory load each, and that instruction stream is what
-// limits it; the tensor cores (wgmma) and TMA copies are later work.
+// limits it.  This is the `simt` instance: ops.pick_impl routes strided
+// layers (AlexNet conv1, GoogLeNet conv1) and weights outside int8 here;
+// stride-1 layers with int8 weights run on the tensor cores in
+// smm_conv_sm90.cu (`sm90`), the faster at every VGG16 layer (PERF.md).
 //
 // Plain C interface, loaded with ctypes: smm_conv_launch returns
 // cudaGetLastError() after the launch (0 = launched).

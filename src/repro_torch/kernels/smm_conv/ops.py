@@ -1,33 +1,40 @@
-"""Wrapper, operand packer and launch counter for the SMM convolution
-kernel.
+"""Wrapper, operand packer, routing rule and launch counters for the SMM
+convolution kernels.
 
-Source note.  The kernel, ``csrc/smm_conv.cu``, replaces the Pallas TPU
-kernel ``src/repro/kernels/smm_conv/kernel.py`` (``_smm_conv_kernel`` /
-``smm_conv_pallas``): the paper's MPE/APE datapath — differential
+Source note.  Two hand-written CUDA kernels replace the Pallas TPU
+kernel ``src/repro/kernels/smm_conv/kernel.py:88`` (``smm_conv_pallas``
+/ ``_smm_conv_kernel``): the paper's MPE/APE datapath -- differential
 scalar×matrix products over each weight vector's sorted unique values,
 routed by a crossbar into output-stationary accumulators.  Against the
 H100's peaks the function is bound by bytes: at the VGG16 main-path
 shapes its float32 input and output planes (0.05–0.4 GB per launch at
-batch 4) take longer at 3.35 TB/s than its 2·nnz int8 operations per
-output pixel at 1,979 TOP/s.  This first kernel runs those operations
-on the CUDA cores, one int32 multiply-add and one shared-memory load
-each, and that instruction stream is what bounds it in practice (see
-PERF.md); the tensor cores are later work.  What the design does for
-the bytes: every input element is read from device memory once per
-output-channel tile and staged in shared memory, every output written
-once.  Its design answers the TPU kernel's assumptions that do not hold
-here:
-a block owns (batch, output-channel tile, 32-column output tile) and
-loops over input channels itself with its accumulators in shared memory
-(the TPU carried them across a sequential grid axis); it stages only the
-input window its tile reads, halo included (the TPU's per-step product
-scratch is megabytes); and it accumulates in int32, exact where the TPU
-kernel's float32 sums stop being exact past 2^24.
+batch 4) take longer at 3.35 TB/s than its dense int8 work at 1,979
+TOP/s.  Both instances sum in int32 and equal the plain version exactly.
+
+* ``"sm90"`` (``csrc/smm_conv_sm90.cu``): stride 1, weights that fit
+  int8 (``meta["int8_weights"]`` of :func:`pack_smm_operands`, known on
+  the host, so routing needs no device sync) and a window that fits
+  shared memory (:func:`sm90_plan`).  One cooperative launch decodes
+  ``(deltas, entries)`` into a dense int8 weight matrix in a scratch
+  buffer kept per (device, stream) here, then runs an implicit GEMM on
+  ``wgmma`` ``.s32.s8.s8`` over windows staged as int8.  It stops the
+  launch (``__trap``) on an x value outside int8, which a direct call
+  could pass: the failure shows at the next sync.
+* ``"simt"`` (``csrc/smm_conv.cu``): the first kernel, on the CUDA
+  cores; every other shape (strided layers such as AlexNet conv1 and
+  GoogLeNet conv1, weights outside int8).
+
+The rule is :func:`pick_impl`.  ``impl=`` of :func:`smm_conv_cuda`
+forces one instance (the tests and ``chip_smoke.py`` use it); forcing
+``"sm90"`` on a shape it does not take raises ``ValueError``.  Nothing
+gives way to another instance or to the plain version: a failed build
+or launch raises.
 
 Dispatch: a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.smm_conv.ref.smm_conv_plain`); a CUDA
-tensor launches the kernel or raises.  :data:`launches` counts kernel
-launches, and only those.
+tensor launches a kernel or raises.  :data:`launches` counts kernel
+launches, and only those (one per call); :data:`launches_by_impl`
+splits the same count by instance.
 """
 from __future__ import annotations
 
@@ -43,9 +50,10 @@ from repro_torch.core.ucr import LayerCode
 from repro_torch.kernels import _build
 from repro_torch.kernels.smm_conv.ref import smm_conv_plain
 
-__all__ = ["KERNEL_CAPS", "launches", "pack_smm_operands", "smm_operands_on",
-           "load_kernel", "smm_conv_cuda", "smm_conv_packed",
-           "smm_conv_batched", "smm_conv"]
+__all__ = ["KERNEL_CAPS", "IMPLS", "SOURCES", "launches", "launches_by_impl",
+           "pack_smm_operands", "smm_operands_on", "sm90_plan",
+           "sm90_refusal", "pick_impl", "load_kernel", "smm_conv_cuda",
+           "smm_conv_packed", "smm_conv_batched", "smm_conv"]
 
 # Capability facts consumed by the backend registry
 # (repro_torch.core.backends.SmmKernelBackend) — kept next to the kernel
@@ -59,9 +67,21 @@ KERNEL_CAPS = {
                    "tensors)",
 }
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "smm_conv.cu"
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = {"simt": _CSRC / "smm_conv.cu", "sm90": _CSRC / "smm_conv_sm90.cu"}
+IMPLS = tuple(SOURCES)
+# sm90: threads of a block, pixels of one warpgroup's wgmma, stages of the
+# shared-memory ring, scratch bytes before the dense weights (the grid
+# barrier's words), the most dynamic shared memory a block may use, the
+# widest window a descriptor's leading byte offset can span
+_SM90_THREADS, _SM90_WG_N, _SM90_STAGES, _SM90_HEAD = 256, 256, 3, 256
+_SM90_MAX_SMEM, _SM90_MAX_P = 232448, 16383
+# the least a stage holds: the epilogue stages 8 rows of 136 floats a warp
+_SM90_MIN_STAGE = _SM90_THREADS // 32 * 8 * 136 * 4
+_GRID_YZ = 65535
 
 launches = 0          # kernel launches since the count was last set to 0
+launches_by_impl = dict.fromkeys(IMPLS, 0)   # the same count, by instance
 
 
 def pack_smm_operands(code: LayerCode, n_in: int
@@ -73,6 +93,11 @@ def pack_smm_operands(code: LayerCode, n_in: int
       deltas  (m_tiles, N, U_max+1) float32 — Δs of sorted unique weights
       entries (m_tiles, N, L_max, 4) int32 — (u, m_local, r, c) per
               repetition; padding → (U_max, 0, 0, 0) = zero product row.
+
+    ``meta`` holds ``m_tiles``, ``t_m``, ``u_max`` and ``l_max`` as the
+    JAX packer's does, and ``int8_weights``: every unique value fits int8
+    and no vector names a position twice, so the dense weights the
+    operands decode to are int8 -- what the ``sm90`` instance takes.
     """
     m = code.shape[0]
     rk, ck = (code.shape[2], code.shape[3]) if len(code.shape) == 4 else (1, 1)
@@ -85,9 +110,10 @@ def pack_smm_operands(code: LayerCode, n_in: int
     deltas = np.zeros((m_tiles, n_in, u_max + 1), dtype=np.float32)
     entries = np.zeros((m_tiles, n_in, l_max, 4), dtype=np.int32)
     entries[:, :, :, 0] = u_max                     # point at the zero row
+    meta = {"m_tiles": m_tiles, "t_m": code.t_m, "u_max": u_max,
+            "l_max": l_max, "int8_weights": True}
     if not len(code.ucr) or not n_u.sum():
-        return deltas, entries, {"m_tiles": m_tiles, "t_m": code.t_m,
-                                 "u_max": u_max, "l_max": l_max}
+        return deltas, entries, meta
 
     vi = np.arange(len(code.ucr))
     vals = np.concatenate([u.unique_vals for u in code.ucr]).astype(np.int64)
@@ -104,8 +130,10 @@ def pack_smm_operands(code: LayerCode, n_in: int
     m_loc, r, c = decode_index(idx, (rk, ck))
     entries[l_vec // n_in, l_vec % n_in, l_pos] = np.stack(
         [np.repeat(u_pos, reps), m_loc, r, c], axis=1)
-    return deltas, entries, {"m_tiles": m_tiles, "t_m": code.t_m,
-                             "u_max": u_max, "l_max": l_max}
+    slots = l_vec * (code.t_m * rk * ck) + idx
+    meta["int8_weights"] = bool(vals.min() >= -128 and vals.max() <= 127
+                                and len(np.unique(slots)) == len(slots))
+    return deltas, entries, meta
 
 
 def smm_operands_on(code: LayerCode, n_in: int, device) -> tuple:
@@ -115,17 +143,108 @@ def smm_operands_on(code: LayerCode, n_in: int, device) -> tuple:
             torch.from_numpy(entries).to(device), meta)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def sm90_plan(x_shape, deltas_shape, *, t_m: int, ro: int, co: int) -> dict:
+    """Tiles, shared memory and scratch of the sm90 instance at stride 1,
+    as ``smm_conv_sm90_launch`` computes them: ``bm`` output channels x
+    ``bn`` pixels a tile (128 x 256 for M > 64, else 64 x 512), a window
+    of ``p`` pixels (pixels linearized over the input width), three
+    stages of ``stage_bytes``, the phase-1 buffer ``decode_bytes``, and in
+    ``scratch_bytes`` the barrier words, the dense int8 matrix (``m_pad``
+    rows, ``chunks`` · taps · 32 columns) and x in int8 (B · chunks · 32
+    bytes a pixel)."""
+    b, n_in, ri, ci = x_shape
+    m_tiles, _, u_plus = deltas_shape
+    kh, kw = ri - ro + 1, ci - co + 1
+    taps, m = kh * kw, m_tiles * t_m
+    wm = 2 if m > 64 else 1
+    bm, bn = 64 * wm, 2 * _SM90_WG_N // wm
+    p = bn + (kh - 1) * ci + kw - 1
+    chunks, m_pad = _cdiv(n_in, 32), _cdiv(m, bm) * bm
+    stage_a = taps * 2 * bm * 16
+    stage_bytes = max(_cdiv(stage_a + 2 * p * 16, 128) * 128,
+                      _SM90_MIN_STAGE)
+    w_bytes = m_pad * chunks * taps * 32
+    return dict(bm=bm, bn=bn, p=p, taps=taps, chunks=chunks, m_pad=m_pad,
+                stage_bytes=stage_bytes, smem=_SM90_STAGES * stage_bytes,
+                decode_bytes=(_SM90_THREADS // 16) * taps * t_m * 16
+                + _SM90_THREADS * u_plus,
+                scratch_bytes=_SM90_HEAD + w_bytes + b * chunks * 32 * ri * ci,
+                tiles=b * _cdiv(ro * ci, bn) * (m_pad // bm))
+
+
+@functools.lru_cache(maxsize=256)
+def sm90_refusal(x_shape, deltas_shape, *, t_m: int, ro: int, co: int,
+                 stride: int, int8_weights: bool) -> str | None:
+    """Why the sm90 instance does not take this call, or None."""
+    if stride != 1:
+        return f"stride {stride}: the sm90 instance takes stride 1"
+    if not int8_weights:
+        return ("the operands are not known to decode to int8 weights "
+                "(meta['int8_weights'] of pack_smm_operands)")
+    plan = sm90_plan(x_shape, deltas_shape, t_m=t_m, ro=ro, co=co)
+    if plan["smem"] > _SM90_MAX_SMEM or plan["p"] > _SM90_MAX_P:
+        return (f"a window of {plan['p']} pixels and {plan['taps']} taps "
+                f"needs {plan['smem']} bytes of shared memory "
+                f"(at most {_SM90_MAX_SMEM})")
+    if plan["decode_bytes"] > plan["smem"]:
+        return f"t_m {t_m} and U+1 {deltas_shape[2]} overflow phase 1"
+    if plan["tiles"] > 1 << 30:
+        return f"{plan['tiles']} tiles exceed the schedule"
+    return None
+
+
+def pick_impl(x_shape, deltas_shape, *, t_m: int, ro: int, co: int,
+              stride: int, int8_weights: bool) -> str:
+    """The instance that runs a call: ``"sm90"`` wherever it takes the
+    shape (:func:`sm90_refusal`), else ``"simt"``.  On the H100 sm90 is
+    the faster at every VGG16 layer it takes, conv1_1 (N = 3, padded to
+    32) included (chip_smoke.py's per-layer rows; PERF.md)."""
+    return "simt" if sm90_refusal(
+        x_shape, deltas_shape, t_m=t_m, ro=ro, co=co, stride=stride,
+        int8_weights=int8_weights) else "sm90"
+
+
 @functools.cache
-def load_kernel():
-    """Build (at first use) and load the kernel; returns the library."""
-    lib = _build.load_library(SOURCE)
-    lib.smm_conv_launch.argtypes = ([ctypes.c_void_p] * 4
-                                    + [ctypes.c_int] * 11
-                                    + [ctypes.c_void_p])
-    lib.smm_conv_launch.restype = ctypes.c_int
-    lib.smm_conv_error_string.argtypes = [ctypes.c_int]
-    lib.smm_conv_error_string.restype = ctypes.c_char_p
+def load_kernel(impl: str):
+    """Build (at first use) and load one instance; returns its library."""
+    lib = _build.load_library(SOURCES[impl])
+    name = "smm_conv" if impl == "simt" else f"smm_conv_{impl}"
+    fn = getattr(lib, f"{name}_launch")
+    if impl == "simt":
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+# Scratch of the sm90 instance, one uint8 buffer per (device, stream): two
+# barrier words, made zero once and left ready by every launch, then the
+# dense int8 weights and x in int8, which each launch writes anew.  Calls
+# on one stream run in order, so they share it; none syncs with the host.
+_scratch: dict[tuple, torch.Tensor] = {}
+
+
+def _sm90_scratch(device: torch.device, stream: int,
+                  n_bytes: int) -> torch.Tensor:
+    """The stream's scratch, grown (and zeroed) when a call needs more."""
+    key = (device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < n_bytes:
+        buf = torch.zeros(max(n_bytes, 1 << 20), dtype=torch.uint8,
+                          device=device)
+        _scratch[key] = buf
+    return buf
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -141,16 +260,30 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _resolve_impl(x_shape, deltas_shape, impl, **kw) -> str:
+    if impl is None:
+        return pick_impl(x_shape, deltas_shape, **kw)
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS} or None, got {impl!r}")
+    if impl == "sm90":
+        why = sm90_refusal(x_shape, deltas_shape, **kw)
+        if why:
+            raise ValueError(f"the sm90 instance does not take this call: "
+                             f"{why}")
+    return impl
+
+
 def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
                   entries: torch.Tensor, *, t_m: int, ro: int, co: int,
-                  stride: int = 1) -> torch.Tensor:
-    """Launch the CUDA kernel: ``x`` (B, N, RI, CI) float32 on a CUDA
-    device → (B, m_tiles·t_m, RO, CO) float32.  Raises on anything the
-    kernel does not take, and when the launch is refused."""
+                  stride: int = 1, int8_weights: bool = False,
+                  impl: str | None = None) -> torch.Tensor:
+    """Launch a CUDA kernel: ``x`` (B, N, RI, CI) float32 on a CUDA
+    device → (B, m_tiles·t_m, RO, CO) float32, on the instance
+    :func:`pick_impl` names, or ``impl``.  ``int8_weights`` is
+    ``meta["int8_weights"]`` of :func:`pack_smm_operands` (False routes
+    to simt).  Raises on anything the instance does not take, and when
+    the launch is refused."""
     global launches
-    if x.device.type != "cuda":
-        raise ValueError(f"smm_conv_cuda needs CUDA tensors, got x on "
-                         f"{x.device}")
     _check("x", x, torch.float32, 4, x.device)
     _check("deltas", deltas, torch.float32, 3, x.device)
     _check("entries", entries, torch.int32, 4, x.device)
@@ -165,34 +298,58 @@ def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
             or (ro - 1) * stride >= ri or (co - 1) * stride >= ci:
         raise ValueError(f"bad geometry: t_m={t_m} ro={ro} co={co} "
                          f"stride={stride} for a {ri}x{ci} input")
-    if b > 65535 or m_tiles > 65535:
-        raise ValueError(f"batch {b} and m_tiles {m_tiles} must be <= 65535")
+    impl = _resolve_impl(tuple(x.shape), tuple(deltas.shape), impl, t_m=t_m,
+                         ro=ro, co=co, stride=stride,
+                         int8_weights=int8_weights)
+    if x.device.type != "cuda":
+        raise ValueError(f"smm_conv_cuda needs CUDA tensors, got x on "
+                         f"{x.device}")
+    if impl == "simt" and (b > _GRID_YZ or m_tiles > _GRID_YZ):
+        raise ValueError(f"batch {b} and m_tiles {m_tiles} must be <= "
+                         f"{_GRID_YZ}")
     out = torch.empty(b, m_tiles * t_m, ro, co, dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
         return out
-    lib = load_kernel()
-    err = lib.smm_conv_launch(
-        x.data_ptr(), deltas.data_ptr(), entries.data_ptr(), out.data_ptr(),
-        b, n_in, ri, ci, m_tiles, u_plus, entries.shape[2], t_m, ro, co,
-        stride, torch.cuda.current_stream(x.device).cuda_stream)
+    lib = load_kernel(impl)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (b, n_in, ri, ci, m_tiles, u_plus, entries.shape[2], t_m, ro, co)
+    if impl == "simt":
+        err = lib.smm_conv_launch(
+            x.data_ptr(), deltas.data_ptr(), entries.data_ptr(),
+            out.data_ptr(), *args, stride, stream)
+        what = lib.smm_conv_error_string
+    else:
+        if entries.data_ptr() % 16:
+            raise ValueError("entries must be 16-byte aligned")
+        need = sm90_plan(tuple(x.shape), tuple(deltas.shape), t_m=t_m,
+                         ro=ro, co=co)["scratch_bytes"]
+        scratch = _sm90_scratch(x.device, stream, need)
+        err = lib.smm_conv_sm90_launch(
+            x.data_ptr(), deltas.data_ptr(), entries.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), scratch.numel(), *args,
+            stream)
+        what = lib.smm_conv_sm90_error_string
     if err != 0:
-        raise RuntimeError(f"smm_conv launch failed: CUDA error {err} "
-                           f"({lib.smm_conv_error_string(err).decode()})")
+        raise RuntimeError(f"smm_conv ({impl}) launch failed: CUDA error "
+                           f"{err} ({what(err).decode()})")
     launches += 1
+    launches_by_impl[impl] += 1
     return out
 
 
 def smm_conv_packed(x: torch.Tensor, deltas: torch.Tensor,
                     entries: torch.Tensor, *, t_m: int, ro: int, co: int,
-                    stride: int = 1) -> torch.Tensor:
+                    stride: int = 1,
+                    int8_weights: bool = False) -> torch.Tensor:
     """The kernel's function on packed operands, by device: the plain
-    version for CPU tensors, the CUDA kernel otherwise."""
+    version for CPU tensors, the CUDA instance that :func:`pick_impl`
+    names otherwise."""
     if x.device.type == "cpu":
         return smm_conv_plain(x, deltas, entries, t_m=t_m, ro=ro, co=co,
                               stride=stride)
     return smm_conv_cuda(x, deltas, entries, t_m=t_m, ro=ro, co=co,
-                         stride=stride)
+                         stride=stride, int8_weights=int8_weights)
 
 
 def smm_conv_batched(x: torch.Tensor, code: LayerCode, *, stride: int = 1,
@@ -212,7 +369,8 @@ def smm_conv_batched(x: torch.Tensor, code: LayerCode, *, stride: int = 1,
         operands = smm_operands_on(code, n_in, x.device)
     deltas, entries, meta = operands
     y = smm_conv_packed(x, deltas, entries, t_m=meta["t_m"], ro=ro, co=co,
-                        stride=stride)
+                        stride=stride,
+                        int8_weights=meta.get("int8_weights", False))
     return y[:, : code.shape[0]]
 
 

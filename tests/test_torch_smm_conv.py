@@ -11,6 +11,11 @@ the tests, so the ``cuda`` tests also run where JAX is absent:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_smm_conv.py
 """
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -67,7 +72,8 @@ def test_pack_smm_operands_equal_reference(shape, density, rng):
     assert td.dtype == jd.dtype and te.dtype == je.dtype
     np.testing.assert_array_equal(td, jd)
     np.testing.assert_array_equal(te, je)
-    assert tm == jm
+    # the JAX packer's meta, plus the port's int8 flag
+    assert {k: tm[k] for k in jm} == jm and tm["int8_weights"] is True
 
 
 def test_pack_smm_operands_all_zero_layer_equal_reference():
@@ -79,7 +85,7 @@ def test_pack_smm_operands_all_zero_layer_equal_reference():
                                                                t_n=2), 2)
     np.testing.assert_array_equal(td, jd)
     np.testing.assert_array_equal(te, je)
-    assert tm == jm
+    assert {k: tm[k] for k in jm} == jm and tm["int8_weights"] is True
 
 
 @pytest.mark.parametrize("stride", [1, 2, 3])
@@ -146,6 +152,200 @@ def test_kernel_caps_is_a_literal_with_the_registry_keys():
     assert tops.KERNEL_CAPS["kinds"] == ("conv",)
 
 
+# -- the sm90 instance's arithmetic, emulated on the host -----------------
+
+def _emulate_sm90(x, deltas, entries, *, t_m, ro, co, store_padding=False):
+    """NumPy emulation of ``smm_conv_sm90.cu`` at stride 1.
+
+    Phase 1 builds the dense int8 weight matrix, K ordered (tap r, tap c,
+    input channel n) with n padded to 32, by storing value[u] for each
+    entry and skipping padding entries (``store_padding`` stores them, as
+    value[U] = 0, which a correct kernel must not do).  Phase 2 stages x
+    channel-innermost in int8, pixels linearized as q = y·CI + x, and per
+    tile of ``ops.sm90_plan`` takes the int32 sum of the window shifted by
+    r·CI + c against the tap's weights; outputs at x ≥ CO are dropped."""
+    x = np.asarray(x)
+    b, n_in, ri, ci = x.shape
+    m_tiles, _, u_plus = deltas.shape
+    plan = tops.sm90_plan(x.shape, deltas.shape, t_m=t_m, ro=ro, co=co)
+    kh, kw = ri - ro + 1, ci - co + 1
+    k_pad, m_out = plan["chunks"] * 32, m_tiles * t_m
+    vals = np.cumsum(np.rint(deltas).astype(np.int64), axis=-1)
+    w = np.zeros((plan["m_pad"], kh * kw, k_pad), np.int8)
+    for mt in range(m_tiles):
+        for n in range(n_in):
+            for u, ml, r, c in entries[mt, n]:
+                if u == u_plus - 1:
+                    if not store_padding:
+                        continue
+                    v = 0
+                else:
+                    v = vals[mt, n, u]
+                assert -128 <= v <= 127
+                w[mt * t_m + ml, r * kw + c, n] = v
+    assert np.array_equal(x, np.rint(x)) and np.abs(x).max() <= 127
+    plane = ri * ci
+    xs = np.zeros((b, plane + plan["p"], k_pad), np.int8)
+    xs[:, :plane, :n_in] = x.reshape(b, n_in, plane).transpose(0, 2, 1)
+    bn = plan["bn"]
+    q_img = ro * ci
+    lin = np.zeros((b, plan["m_pad"], -(-q_img // bn) * bn), np.int32)
+    for q0 in range(0, q_img, bn):
+        win = xs[:, q0 : q0 + plan["p"]].astype(np.int32)   # (B, P, K)
+        for r in range(kh):
+            for c in range(kw):
+                sh = r * ci + c
+                assert sh + bn <= plan["p"]
+                lin[:, :, q0 : q0 + bn] += np.einsum(
+                    "mk,bpk->bmp", w[:, r * kw + c].astype(np.int32),
+                    win[:, sh : sh + bn])
+    out = lin[:, :m_out, :q_img].reshape(b, m_out, ro, ci)[..., :co]
+    return out.astype(np.float32)
+
+
+def _stride1_case(rng, m, n, rk, ck, ri, ci, t_m, t_n, b=2, density=0.5):
+    w = _sparse(rng, (m, n, rk, ck), density)
+    tcode = tucr.encode_conv_layer(w, t_m=t_m, t_n=t_n)
+    deltas, entries, meta = tops.pack_smm_operands(tcode, n)
+    x = rng.integers(-127, 128, size=(b, n, ri, ci)).astype(np.float32)
+    return w, tcode, deltas, entries, meta, x
+
+
+SM90_EMU_SHAPES = SHAPES + [(10, 48, 3, 3, 9, 11, 4, 4),   # partial chunk
+                            (6, 33, 3, 2, 7, 8, 4, 2)]     # 1 channel over
+
+
+@pytest.mark.parametrize("shape", SM90_EMU_SHAPES)
+def test_sm90_emulation_exact_vs_plain_and_reference(shape, rng):
+    """The sm90 instance's int8 arithmetic, emulated: == the plain
+    version == JAX ``conv2d_smm_batched``, exactly, at stride 1 (a ragged
+    last m_tile at m = 10, t_m = 4; a partial 32-channel chunk at
+    n = 48)."""
+    jucr, jsmm, _, _ = _jax_ref()
+    m, n, rk, ck, ri, ci, t_m, t_n = shape
+    w, _, deltas, entries, meta, x = _stride1_case(rng, *shape)
+    ro, co = ri - rk + 1, ci - ck + 1
+    assert meta["int8_weights"]
+    got = _emulate_sm90(x, deltas, entries, t_m=t_m, ro=ro, co=co)
+    plain = tref.smm_conv_plain(torch.from_numpy(x), torch.from_numpy(deltas),
+                                torch.from_numpy(entries), t_m=t_m, ro=ro,
+                                co=co)
+    np.testing.assert_array_equal(got, plain.numpy())
+    jcode = jucr.encode_conv_layer(w, t_m=t_m, t_n=t_n)
+    want = jsmm.conv2d_smm_batched(x.astype(np.int64), jcode, 1)
+    np.testing.assert_array_equal(got[:, :m], want.astype(np.float32))
+
+
+def test_sm90_emulation_skips_padding_entries(rng):
+    """A vector with a real weight at (m_local 0, r 0, c 0) and padding
+    entries (U, 0, 0, 0): skipping them is exact; storing them, as the
+    zero product row, overwrites that weight, and the test tells."""
+    w = np.zeros((4, 2, 3, 3), np.float32)
+    w[0, 0, 0, 0] = 1.0                 # the slot padding points at
+    w[2, 0, 1, 2] = -0.5
+    w[1, 1, :, :] = rng.normal(size=(3, 3))   # a longer vector: padding
+    code = tucr.encode_conv_layer(w, t_m=4, t_n=2)
+    deltas, entries, meta = tops.pack_smm_operands(code, 2)
+    u_pad = deltas.shape[2] - 1
+    assert (entries[0, 0, :, 0] == u_pad).any()       # vector 0 has padding
+    real = entries[0, 0][entries[0, 0, :, 0] != u_pad]
+    assert ((real[:, 1:] == 0).all(axis=1)).any()      # and a weight at 0,0,0
+    x = rng.integers(-127, 128, size=(2, 2, 8, 8)).astype(np.float32)
+    plain = tref.smm_conv_plain(torch.from_numpy(x), torch.from_numpy(deltas),
+                                torch.from_numpy(entries), t_m=4, ro=6,
+                                co=6).numpy()
+    np.testing.assert_array_equal(
+        _emulate_sm90(x, deltas, entries, t_m=4, ro=6, co=6), plain)
+    wrong = _emulate_sm90(x, deltas, entries, t_m=4, ro=6, co=6,
+                          store_padding=True)
+    assert not np.array_equal(wrong, plain)
+
+
+# VGG16 conv1_1..conv3_3 as the main path chains them (VALID, no pooling,
+# from 226^2) and at their published input sizes
+_VGG_MAIN_HW = (226, 224, 222, 220, 218, 216, 214)
+
+
+def _vgg_calls(published: bool):
+    from repro_torch.configs.paper_cnns import VGG16
+    for s, hw in zip(VGG16[:7], _VGG_MAIN_HW):
+        ri = s.ri if published else hw
+        m_tiles = -(-s.m // 4)
+        yield ((4, s.n, ri, ri), (m_tiles, s.n, 17),
+               dict(t_m=4, ro=ri - 2, co=ri - 2, stride=1))
+
+
+@pytest.mark.parametrize("published", [False, True])
+def test_pick_impl_routes_vgg16_to_sm90(published):
+    for x_shape, d_shape, kw in _vgg_calls(published):
+        assert tops.pick_impl(x_shape, d_shape, int8_weights=True,
+                              **kw) == "sm90", x_shape
+        assert tops.sm90_refusal(x_shape, d_shape, int8_weights=True,
+                                 **kw) is None
+        # weights not known to fit int8 stay on simt
+        assert tops.pick_impl(x_shape, d_shape, int8_weights=False,
+                              **kw) == "simt"
+
+
+def test_pick_impl_routes_strided_layers_to_simt():
+    from repro_torch.configs.paper_cnns import ALEXNET, GOOGLENET
+    for s in (ALEXNET[0], GOOGLENET[0]):
+        args = ((4, s.n, s.ri, s.ci), (-(-s.m // 4), s.n, 17))
+        kw = dict(t_m=4, ro=s.ro, co=s.co, stride=s.stride,
+                  int8_weights=True)
+        assert s.stride > 1
+        assert tops.pick_impl(*args, **kw) == "simt"
+        assert "stride" in tops.sm90_refusal(*args, **kw)
+
+
+def test_forcing_sm90_on_a_shape_it_does_not_take_raises(rng):
+    w = _sparse(rng, (4, 2, 3, 3), 0.5)
+    code = tucr.encode_conv_layer(w, t_m=4, t_n=2)
+    deltas, entries, meta = tops.smm_operands_on(code, 2, "cpu")
+    x = torch.zeros(1, 2, 9, 9)
+    with pytest.raises(ValueError, match="stride 2"):
+        tops.smm_conv_cuda(x, deltas, entries, t_m=4, ro=4, co=4, stride=2,
+                           int8_weights=True, impl="sm90")
+    with pytest.raises(ValueError, match="int8 weights"):
+        tops.smm_conv_cuda(x, deltas, entries, t_m=4, ro=7, co=7,
+                           impl="sm90")
+    with pytest.raises(ValueError, match="impl must be"):
+        tops.smm_conv_cuda(x, deltas, entries, t_m=4, ro=7, co=7,
+                           impl="dense")
+    # a window too wide for shared memory
+    wide = (1, 2, 3, 40000)
+    assert "shared memory" in tops.sm90_refusal(
+        wide, deltas.shape, t_m=4, ro=1, co=39998, stride=1,
+        int8_weights=True)
+
+
+def test_pack_meta_int8_flag(rng):
+    """``int8_weights`` holds for UCR codes and falls when a unique value
+    leaves int8 or a vector names a position twice."""
+    w = _sparse(rng, (8, 3, 3, 3), 0.6)
+    code = tucr.encode_conv_layer(w, t_m=4, t_n=2)
+    assert tops.pack_smm_operands(code, 3)[2]["int8_weights"] is True
+    vi = next(i for i, u in enumerate(code.ucr) if len(u.indexes) > 1)
+    big = tucr.UCRVector(code.ucr[vi].unique_vals.astype(np.int16) * 3,
+                         code.ucr[vi].reps, code.ucr[vi].indexes,
+                         code.ucr[vi].vector_len)
+    big.unique_vals[-1] = 300
+    ucrs = list(code.ucr)
+    ucrs[vi] = big
+    deltas, _, meta = tops.pack_smm_operands(
+        tucr.LayerCode(code.vectors, ucrs, code.shape, code.scale, code.t_m,
+                       code.t_n, code.params), 3)
+    assert meta["int8_weights"] is False and deltas.sum() > 0
+    u = code.ucr[vi]
+    dup = tucr.UCRVector(u.unique_vals, u.reps,
+                         np.full_like(u.indexes, u.indexes[0]), u.vector_len)
+    ucrs[vi] = dup
+    meta = tops.pack_smm_operands(
+        tucr.LayerCode(code.vectors, ucrs, code.shape, code.scale, code.t_m,
+                       code.t_n, code.params), 3)[2]
+    assert meta["int8_weights"] is False
+
+
 # -- on the card -----------------------------------------------------------
 
 CUDA_CASES = [
@@ -197,3 +397,121 @@ def test_cuda_kernel_rejects_bad_operands(cuda_device):
                            co=6)
     with pytest.raises(ValueError, match="geometry"):
         tops.smm_conv_cuda(x, deltas, entries, t_m=4, ro=9, co=6)
+
+
+# stride-1 cases at VGG16's widths: N = 3 (padded to 32), n_in 64 / 128 /
+# 256, M 64 / 128 / 256, a 214-pixel ragged edge, batch 1 and 4
+SM90_CASES = [
+    (64, 3, 3, 3, 226, 226, 4, 4, 1, 4),      # conv1_1 at its input size
+    (128, 64, 3, 3, 66, 66, 4, 4, 1, 4),
+    (256, 128, 3, 3, 30, 30, 4, 4, 1, 1),
+    (256, 256, 3, 3, 216, 216, 4, 4, 1, 1),   # conv3_2 on the main path
+]
+
+
+def _cuda_layer(rng, case, device):
+    m, n, rk, ck, ri, ci, t_m, t_n, stride, b = case
+    code = tucr.encode_conv_layer(_sparse(rng, (m, n, rk, ck), 0.4),
+                                  t_m=t_m, t_n=t_n, n_unique=16)
+    x = torch.from_numpy(rng.integers(-128, 128, size=(b, n, ri, ci)).astype(
+        np.float32)).to(device)
+    deltas, entries, meta = tops.smm_operands_on(code, n, device)
+    kw = dict(t_m=meta["t_m"], ro=(ri - rk) // stride + 1,
+              co=(ci - ck) // stride + 1, stride=stride,
+              int8_weights=meta["int8_weights"])
+    return code, x, deltas, entries, kw
+
+
+def _plain(x, deltas, entries, kw):
+    return tref.smm_conv_plain(x, deltas, entries, t_m=kw["t_m"],
+                               ro=kw["ro"], co=kw["co"], stride=kw["stride"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", tops.IMPLS)
+@pytest.mark.parametrize("case", CUDA_CASES + SM90_CASES)
+def test_cuda_each_instance_exact_vs_plain(case, impl, cuda_device, rng):
+    """Each instance, forced, on every case it takes: max-abs-diff 0
+    against the plain version, the same bits on a second call, and one
+    launch a call on its own count.  Forcing sm90 on a case it does not
+    take raises."""
+    _, x, deltas, entries, kw = _cuda_layer(rng, case, cuda_device)
+    why = tops.sm90_refusal(tuple(x.shape), tuple(deltas.shape), **kw)
+    if impl == "sm90" and why:
+        with pytest.raises(ValueError, match="does not take"):
+            tops.smm_conv_cuda(x, deltas, entries, impl=impl, **kw)
+        assert case[8] > 1        # only the strided cases stay on simt
+        return
+    before = tops.launches_by_impl[impl]
+    got = tops.smm_conv_cuda(x, deltas, entries, impl=impl, **kw)
+    again = tops.smm_conv_cuda(x, deltas, entries, impl=impl, **kw)
+    torch.cuda.synchronize()
+    assert tops.launches_by_impl[impl] == before + 2
+    want = _plain(x, deltas, entries, kw)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) == 0.0
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_launches_by_impl_follow_the_rule(cuda_device, rng):
+    """Through ``smm_conv_batched`` (the engine's call), each layer runs
+    on the instance ``pick_impl`` names, and only there."""
+    for case in CUDA_CASES[:3] + SM90_CASES[1:3]:
+        code, x, deltas, entries, kw = _cuda_layer(rng, case, cuda_device)
+        want = tops.pick_impl(tuple(x.shape), tuple(deltas.shape), **kw)
+        assert want == ("sm90" if case[8] == 1 else "simt")
+        before = dict(tops.launches_by_impl)
+        y = tops.smm_conv_batched(x, code, stride=kw["stride"],
+                                  operands=tops.smm_operands_on(
+                                      code, case[1], cuda_device))
+        torch.cuda.synchronize()
+        assert {i: tops.launches_by_impl[i] - before[i]
+                for i in tops.IMPLS} == {i: int(i == want)
+                                         for i in tops.IMPLS}
+        assert float((y - _plain(x, deltas, entries, kw)[:, :case[0]])
+                     .abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_sm90_scratch_reuse_on_one_stream(cuda_device, rng):
+    """Two layers of different sizes back to back on one stream, with no
+    sync between: each launch decodes its own weights into the shared
+    scratch, after the one before has finished with it."""
+    big = _cuda_layer(rng, (256, 128, 3, 3, 34, 34, 4, 4, 1, 2), cuda_device)
+    small = _cuda_layer(rng, (64, 40, 3, 3, 20, 21, 4, 4, 1, 3), cuda_device)
+    runs = [(lay, tops.smm_conv_cuda(*lay[1:4], impl="sm90", **lay[4]))
+            for lay in (big, small, big, small)]
+    torch.cuda.synchronize()
+    for (_, x, deltas, entries, kw), got in runs:
+        assert float((got - _plain(x, deltas, entries, kw)).abs().max()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sm90_refuses_x_outside_int8(cuda_device):
+    """x = 200 cannot be staged as int8: the launch stops (``__trap``)
+    and the failure shows at the next sync, never as a wrong sum.  A
+    trapped launch ends the process's CUDA context, so it runs apart."""
+    code = "\n".join([
+        "import numpy as np, torch",
+        "from repro_torch.core import ucr",
+        "from repro_torch.kernels.smm_conv import ops",
+        "w = np.random.default_rng(0).normal(size=(8, 4, 3, 3))",
+        "c = ucr.encode_conv_layer(w.astype(np.float32), t_m=4, t_n=2)",
+        "d, e, meta = ops.smm_operands_on(c, 4, 'cuda')",
+        "x = torch.zeros(1, 4, 10, 10, device='cuda')",
+        "x[0, 1, 3, 4] = 200.0",
+        "y = ops.smm_conv_cuda(x, d, e, t_m=4, ro=8, co=8,",
+        "                      int8_weights=meta['int8_weights'],",
+        "                      impl='sm90')",
+        "print('launched', flush=True)",
+        "torch.cuda.synchronize()",
+        "print('no error', float(y.abs().max()), flush=True)",
+    ])
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert "launched" in proc.stdout, proc.stderr
+    assert "no error" not in proc.stdout
+    assert proc.returncode != 0
