@@ -45,6 +45,24 @@ calls:
   round P to bf16 (SDPA, and the plain version so changed) must fail
   that bound.  At the long prompts both instances are timed.
 
+After the three paths, two serving phases drive the same compiled
+models through the port's servers:
+
+* the CNN batch server (``CompiledModel.serve``, the VGG16 model of the
+  first path): 12 single-image requests synchronously, the same 12
+  asynchronously (load trigger, pinned staging on a side stream), and 3
+  that take the latency trigger; async == sync == ``CompiledModel.run``
+  on the stacked batch at max-abs-diff 0, every ``smm_conv`` launch on
+  ``sm90``;
+* the continuous batcher (``ContinuousBatcher``) on the qwen2.5-3b
+  packs of the second path: six prompts over four slots, two joining
+  mid-stream; every request equals its solo ``generate_reference``
+  (tokens and logits bits), a bf16 paged pool reproduces the dense
+  pool's tokens, an int8 paged pool stays within 0.10 of the dense
+  logit spread under teacher forcing; ``run_serve_continuous(check=True)``
+  at its smoke size.  A host-only line gives the paper's cost-model
+  ratios (a model estimate, not a measurement).
+
 Each kernel's launch count is set to 0 just before its path runs and
 read just after.  Each kernel is held against its plain PyTorch version
 on the card at the shapes its path gives it, and timed.  The script
@@ -212,38 +230,51 @@ def _device_us(e) -> float:
 # path 1: CNN inference on smm_conv (VGG16 conv1_1 .. conv3_3)
 # ---------------------------------------------------------------------------
 
-def _profile_request(compiled, x) -> dict:
-    """One steady request under ``torch.profiler``: wall time, device-busy
-    time, the smm_conv kernels' share and the host's op time.  The
+def _profile(fn, name: str, names) -> dict:
+    """One call of ``fn`` (ending in a synchronize) under
+    ``torch.profiler``: wall time, device-busy time and idle share, the
+    share of the kernels whose name matches ``names`` (as ``<name>_ms``
+    and ``<name>_launches``), all kernels, and the host's op time.  The
     profiler adds host time of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        compiled.run(x)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
+    # device kernels only: an op's row repeats its kernels' time
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device = sum(_device_us(e) for e in kernels) / 1e3
-    smm = [e for e in kernels if SMM_KERNEL_NAMES.search(e.key)]
+    named = [e for e in kernels if names.search(e.key)]
     out = {"wall_ms": wall, "device_busy_ms": device,
-           "smm_conv_ms": sum(_device_us(e) for e in smm) / 1e3,
-           "smm_conv_launches": sum(e.count for e in smm),
+           f"{name}_ms": sum(_device_us(e) for e in named) / 1e3,
+           f"{name}_launches": sum(e.count for e in named),
            "device_kernels": sum(e.count for e in kernels),
            "host_op_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
            "top": sorted(([e.key[:60], _device_us(e) / 1e3, e.count]
                           for e in kernels), key=lambda r: -r[1])[:6]}
-    idle = ("not measured (no device events)" if device == 0 else
-            f"{max(0.0, 1 - device / wall):.3f}")
-    say(f"cnn profile, one steady request: wall {wall:.3f} ms, device busy "
-        f"{device:.3f} ms (idle share {idle}), smm_conv "
-        f"{out['smm_conv_ms']:.3f} ms over {out['smm_conv_launches']} "
+    out["idle"] = ("not measured (no device events)" if device == 0 else
+                   f"{max(0.0, 1 - device / wall):.3f}")
+    return out
+
+
+def _say_profile(label: str, out: dict, name: str) -> None:
+    say(f"{label}: wall {out['wall_ms']:.3f} ms, device busy "
+        f"{out['device_busy_ms']:.3f} ms (idle share {out['idle']}), {name} "
+        f"{out[name + '_ms']:.3f} ms over {out[name + '_launches']} "
         f"launches, {out['device_kernels']} kernels in all, host op time "
         f"{out['host_op_ms']:.3f} ms; top kernels [name, ms, count]: "
         f"{out['top']}")
+
+
+def _profile_request(compiled, x) -> dict:
+    """One steady request under ``torch.profiler``."""
+    out = _profile(lambda: compiled.run(x), "smm_conv", SMM_KERNEL_NAMES)
+    _say_profile("cnn profile, one steady request", out, "smm_conv")
     return out
 
 
@@ -464,7 +495,8 @@ def cnn_path(args) -> dict:
         f"{sums['simt_ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
         f"F.conv2d fp32 {sums['library_ms']:.4f} ms, TF32 "
         f"{sums['library_tf32_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(SMM_KERNEL, launches=launches, launches_by_impl=by_impl,
+    return compiled, dict(SMM_KERNEL, launches=launches,
+                          launches_by_impl=by_impl,
                 launches_per_request=per_request, max_abs_err=max_err,
                 **sums, bound_ms=b_ms, bound_by=b_by,
                 per_request="sums over the 7 main-path launches of one "
@@ -543,43 +575,16 @@ def _teacher_forced(api, params, cfg, tokens, dtype, steps: int = 4):
 
 
 def _profile_step(api, params, cfg, tokens) -> dict:
-    """One decode step (after two warm ones) under ``torch.profiler``:
-    wall time, device-busy time, the codr_matmul kernel's share and the
-    host's op time.  The profiler adds host time of its own."""
+    """One decode step (after two warm ones) under ``torch.profiler``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     cache = api.init_cache(cfg, tokens.shape[0], 8, device=tokens.device)
     for i in range(2):
         _, cache = api.decode_step(params, cache, tokens[:, i], i, cfg)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        api.decode_step(params, cache, tokens[:, 2], 2, cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-
-    events = prof.key_averages()
-    # device kernels only: an op's row repeats its kernels' time
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device = sum(_device_us(e) for e in kernels) / 1e3
-    mm = [e for e in kernels if MM_KERNEL_NAMES.search(e.key)]
-    out = {"wall_ms": wall, "device_busy_ms": device,
-           "codr_matmul_ms": sum(_device_us(e) for e in mm) / 1e3,
-           "codr_matmul_launches": sum(e.count for e in mm),
-           "device_kernels": sum(e.count for e in kernels),
-           "host_op_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
-           "top": sorted(([e.key[:60], _device_us(e) / 1e3, e.count]
-                          for e in kernels), key=lambda r: -r[1])[:6]}
-    idle = ("not measured (no device events)" if device == 0 else
-            f"{max(0.0, 1 - device / wall):.3f}")
-    say(f"serve profile, one decode step: wall {wall:.3f} ms, device busy "
-        f"{device:.3f} ms (idle share {idle}), codr_matmul "
-        f"{out['codr_matmul_ms']:.3f} ms over {out['codr_matmul_launches']} "
-        f"launches, {out['device_kernels']} kernels in all, host op time "
-        f"{out['host_op_ms']:.3f} ms; top kernels [name, ms, count]: "
-        f"{out['top']}")
+    out = _profile(lambda: api.decode_step(params, cache, tokens[:, 2], 2,
+                                           cfg), "codr_matmul",
+                   MM_KERNEL_NAMES)
+    _say_profile("serve profile, one decode step", out, "codr_matmul")
     return out
 
 
@@ -606,8 +611,8 @@ def _layer0_qkv(params, cfg, tokens, cache) -> tuple:
 
 
 def serve_path(args) -> tuple:
-    """The serving path; returns the ``codr_matmul`` row and the q, k, v
-    of layer 0's attention in the main path's prefill."""
+    """The serving path; returns the ``codr_matmul`` row, the q, k, v of
+    layer 0's attention in the main path's prefill, and the packs."""
     import torch
 
     import repro_torch.api as codr
@@ -950,7 +955,8 @@ def serve_path(args) -> tuple:
                            "prefill_launches_by_impl": prefill_by_impl,
                            "max_abs_err_bf16": err_bf16,
                            "lane_vs_tiled_max_abs_err_f32": lane_err,
-                           "bf16_lanes": bf16_err, "profile": prof}), qkv
+                           "bf16_lanes": bf16_err, "profile": prof}), \
+        qkv, compiled
 
 
 # ---------------------------------------------------------------------------
@@ -1200,6 +1206,362 @@ def attention_path(args, prefill_qkv) -> dict:
                 chunked_max_abs_err=err_chunked)
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the CNN batch server (CompiledModel.serve) on smm_conv
+# ---------------------------------------------------------------------------
+
+def _add_phase(row: dict, name: str, phase: dict) -> None:
+    """Fold a serving phase's launches into its kernel's row."""
+    row["launches"] += phase["launches"]
+    for impl, n in phase["launches_by_impl"].items():
+        row["launches_by_impl"][impl] = row["launches_by_impl"].get(
+            impl, 0) + n
+    row[name] = phase
+
+
+def _percentile(xs, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def cnn_server_phase(args, compiled, hw: int = 226) -> dict:
+    """The VGG16 model of the first path behind ``CompiledModel.serve``:
+    12 single-image requests synchronously, the same 12 asynchronously
+    (each group of 4 fills a batch: the load trigger), then 3 that take
+    the latency trigger.  Activations are re-quantized per batch, so a
+    row depends on its batch's other rows: async and sync are compared
+    on the same groups, and each group against ``compiled.run`` on its
+    stacked (padded) batch, at max-abs-diff 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.smm_conv import ops
+    img_rng = np.random.default_rng(args.seed + 4)
+    imgs = [img_rng.integers(0, 256, size=(hw, hw, 3)).astype(np.float32)
+            for _ in range(15)]
+    groups = [imgs[0:4], imgs[4:8], imgs[8:12]]
+    trio = imgs[12:15]
+    sync = compiled.serve(max_batch=4)
+    server = compiled.serve(max_batch=4, flush_deadline_s=0.005)
+    # warm-up: the worker thread's first batch pays smm_conv's per-thread
+    # occupancy query; the counts below start after it
+    server.start_async()
+    for f in [server.submit_async(x) for x in groups[0]]:
+        f.result(timeout=300)
+    torch.cuda.synchronize()
+    buckets0 = dict(server.bucket_counts)
+
+    ops.launches = 0
+    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+    t0 = time.perf_counter()
+    sync_outs = sync.serve(imgs[:12])
+    sync_s = time.perf_counter() - t0
+    sync_trio = sync.serve(trio)
+    lat, async_outs = [], []
+
+    def submit(x):
+        t_sub = time.perf_counter()
+        fut = server.submit_async(x)
+        fut.add_done_callback(lambda _f, t_sub=t_sub: lat.append(
+            (time.perf_counter() - t_sub) * 1e3))
+        return fut
+    t0 = time.perf_counter()
+    for g in groups:
+        async_outs += [f.result(timeout=300) for f in [submit(x)
+                                                        for x in g]]
+    async_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    async_trio = [f.result(timeout=300) for f in [submit(x) for x in trio]]
+    trio_ms = (time.perf_counter() - t1) * 1e3
+    server.stop_async()
+    launches, by_impl = ops.launches, dict(ops.launches_by_impl)
+    buckets = {b: n - buckets0.get(b, 0)
+               for b, n in server.bucket_counts.items()
+               if n - buckets0.get(b, 0)}
+
+    n_layers = len(compiled.model.layers)
+    want = n_layers * (3 + 1 + 3 + 1)      # sync 3 + 1 batches, async 3 + 1
+    say(f"cnn server: sync 12 requests {sync_s * 1e3:.3f} ms "
+        f"({12 / sync_s:.3f} images/s); async 12 requests "
+        f"{async_s * 1e3:.3f} ms ({12 / async_s:.3f} images/s), latency "
+        f"p50 {_percentile(lat[:12], 50):.3f} ms p95 "
+        f"{_percentile(lat[:12], 95):.3f} ms; 3 on the latency trigger "
+        f"(flush_deadline_s {server.flush_deadline_s}) {trio_ms:.3f} ms, "
+        f"latency p50 {_percentile(lat[12:], 50):.3f} ms; async "
+        f"bucket_counts {buckets}, sync bucket_counts {sync.bucket_counts}; "
+        f"smm_conv launches {launches}, by instance {by_impl}")
+    if buckets != {4: 4}:
+        fail(f"cnn server: async bucket_counts {buckets}, expected 3 load-"
+             f"trigger batches and 1 latency-trigger batch of bucket 4")
+    if launches != want or by_impl.get("sm90") != launches:
+        fail(f"cnn server: smm_conv launches {launches} ({by_impl}), "
+             f"expected {want}, all on sm90")
+    err = 0.0
+    for gi, g in enumerate(groups + [trio]):
+        batch = np.stack(g + [g[-1]] * (4 - len(g)))
+        ref = compiled.run(batch).cpu().numpy()
+        a = async_outs[4 * gi:4 * gi + 4] if gi < 3 else async_trio
+        y = sync_outs[4 * gi:4 * gi + 4] if gi < 3 else sync_trio
+        for j in range(len(g)):
+            if not (np.array_equal(a[j], y[j])
+                    and np.array_equal(y[j], ref[j])):
+                fail(f"cnn server: group {gi} row {j}: async / sync / run "
+                     f"differ (max-abs {float(np.abs(a[j] - ref[j]).max())}"
+                     f" / {float(np.abs(y[j] - ref[j]).max())})")
+            if a[j].shape != ref.shape[1:] or not np.isfinite(a[j]).all():
+                fail(f"cnn server: row {a[j].shape} not finite")
+            err = max(err, float(np.abs(a[j] - ref[j]).max()))
+    say(f"cnn server: async == sync == compiled.run on every group, "
+        f"max-abs-diff {err}")
+
+    # where a batch's time goes: the model run, then the rows' copy to
+    # the host (what every request returns, as in the reference)
+    batch = np.stack(groups[1])
+    run_ms, copy_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        y = compiled.run(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y.cpu().numpy()
+        run_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((time.perf_counter() - t1) * 1e3)
+    out_bytes = y.numel() * y.element_size()
+    say(f"cnn server, one batch of 4: compiled.run {run_ms} ms, its "
+        f"{out_bytes}-byte output to host numpy {copy_ms} ms "
+        f"({out_bytes / min(copy_ms) / 1e6:.1f} MB/ms at best)")
+    prof = _profile(lambda: sync.serve(groups[1]), "smm_conv",
+                    SMM_KERNEL_NAMES)
+    _say_profile("cnn server profile, one sync batch (serve: run + host "
+                 "rows)", prof, "smm_conv")
+    return {"launches": launches, "launches_by_impl": by_impl,
+            "run_ms": run_ms, "to_host_ms": copy_ms,
+            "output_bytes": out_bytes, "profile": prof,
+            "sync_ms": sync_s * 1e3, "async_ms": async_s * 1e3,
+            "sync_images_s": 12 / sync_s, "async_images_s": 12 / async_s,
+            "latency_p50_ms": _percentile(lat[:12], 50),
+            "latency_p95_ms": _percentile(lat[:12], 95),
+            "deadline_trio_ms": trio_ms, "bucket_counts": buckets,
+            "max_abs_err": err}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the continuous batcher on codr_matmul
+# ---------------------------------------------------------------------------
+
+BATCH_LENS = (5, 12, 17, 24, 33, 40)   # prompt lengths of the six requests
+BATCH_GEN = 16
+
+
+def _instrument(cb, stats: dict, mm_ops) -> None:
+    """Wrap a batcher's prefill and pooled step: each call's device time
+    (synchronized both sides; the batcher copies the logits to the host
+    right after anyway) and its codr_matmul launches by instance."""
+    import torch
+
+    def timed(kind, fn):
+        def call(*a):
+            before = dict(mm_ops.launches_by_impl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            stats[kind + "_ms"].append((time.perf_counter() - t0) * 1e3)
+            for i in mm_ops.IMPLS:
+                stats[kind][i] += mm_ops.launches_by_impl[i] - before[i]
+            return out
+        return call
+    cb._prefill_fn = timed("prefill", cb._prefill_fn)
+    cb._step_fn = timed("decode", cb._step_fn)
+
+
+def _pooled_run(cb, prompts) -> list:
+    """Four requests, then — once the first has streamed 4 tokens — two
+    more that join mid-stream (they wait for slots to free)."""
+    handles = [cb.submit(p, max_new_tokens=BATCH_GEN) for p in prompts[:4]]
+    it = iter(handles[0])
+    head = [next(it) for _ in range(4)]
+    handles += [cb.submit(p, max_new_tokens=BATCH_GEN) for p in prompts[4:]]
+    outs = [h.result(timeout=600) for h in handles]
+    if head != outs[0][:4]:
+        fail("batcher: the stream differs from the result")
+    return handles, outs
+
+
+def batcher_phase(args, packs, cfg) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.batching import ContinuousBatcher
+    from repro_torch.kernels.codr_matmul import ops
+    from repro_torch.launch.serve import run_serve_continuous
+
+    rng = np.random.default_rng(args.seed + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in BATCH_LENS]
+    bits = packs.params["stack"]["b0"]["mixer"]["q_proj"][0].weight.bits
+    per_forward = 7 * cfg.n_layers
+    cb = ContinuousBatcher(packs, cfg, n_slots=4, max_len=96,
+                           record_logits=True)
+    stats = {"prefill": dict.fromkeys(ops.IMPLS, 0),
+             "decode": dict.fromkeys(ops.IMPLS, 0),
+             "prefill_ms": [], "decode_ms": []}
+    _instrument(cb, stats, ops)
+    say(f"batcher: {cfg.name} at full width from the serve path's packs "
+        f"({bits}-bit); n_slots 4, max_len 96, prompts {BATCH_LENS}, "
+        f"max_new_tokens {BATCH_GEN}")
+
+    ops.launches = 0
+    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+    t0 = time.perf_counter()
+    handles, outs = _pooled_run(cb, prompts)
+    wall = time.perf_counter() - t0
+    cb.stop_async()
+    launches, by_impl = ops.launches, dict(ops.launches_by_impl)
+    # the oracles below run through the same wrappers: keep this run's
+    pre, dec = dict(stats["prefill"]), dict(stats["decode"])
+    step_list, pre_list = list(stats["decode_ms"]), list(stats["prefill_ms"])
+    n_tok = sum(len(o) for o in outs)
+    step_ms = float(np.median(step_list))
+    say(f"batcher pooled run: {n_tok} tokens in {wall * 1e3:.3f} ms "
+        f"({n_tok / wall:.3f} tokens/s); steps_run {cb.steps_run}, "
+        f"prefills_run {cb.prefills_run}, peak_active {cb.peak_active}; "
+        f"pooled step median {step_ms:.3f} ms (min {min(step_list):.3f}, "
+        f"max {max(step_list):.3f}); prefill ms in admission order "
+        f"{[round(t, 3) for t in pre_list]}")
+    want_pre = dict.fromkeys(ops.IMPLS, 0)
+    for n in BATCH_LENS:
+        want_pre[ops.pick_impl(n, bits)] += per_forward
+    want_dec = dict.fromkeys(ops.IMPLS, 0)
+    want_dec[ops.pick_impl(4, bits)] += per_forward * cb.steps_run
+    say(f"batcher codr_matmul launches: prefill {pre}, decode {dec}, in all "
+        f"{launches} (routing predicts {want_pre} / {want_dec})")
+    if (pre != want_pre or dec != want_dec
+            or launches != per_forward * (len(BATCH_LENS) + cb.steps_run)):
+        fail(f"batcher: codr_matmul launches {pre} / {dec} differ from the "
+             f"routing rule's {want_pre} / {want_dec}")
+    if cb.prefills_run != 6 or cb.peak_active != 4 or any(
+            len(o) != BATCH_GEN for o in outs):
+        fail(f"batcher: prefills {cb.prefills_run}, peak_active "
+             f"{cb.peak_active}, lengths {[len(o) for o in outs]}")
+
+    # where a pooled step's time goes: the model's decode_step on a
+    # 4-slot pool with per-slot positions, dense and int8-paged
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import get_model
+    api = get_model(cfg)
+    tvec = torch.tensor([11, 22, 33, 44], device="cuda")
+    pvec = torch.tensor([10, 20, 30, 40], device="cuda")
+    profs = {}
+    for label, spec in (("dense", None), ("int8 paged", cache_mod.PagedSpec(
+            page_size=16, max_len=96, n_slots=4, kv_dtype="int8"))):
+        pool = api.init_cache(cfg, 4, 96, paged=spec)
+        if spec is not None:
+            cache_mod.set_tables(pool, 1 + np.arange(24).reshape(4, 6))
+        for _ in range(2):
+            api.decode_step(packs.params, pool, tvec, pvec, cfg)
+        torch.cuda.synchronize()
+        profs[label] = _profile(lambda: api.decode_step(
+            packs.params, pool, tvec, pvec, cfg), "codr_matmul",
+            MM_KERNEL_NAMES)
+        _say_profile(f"batcher profile, one pooled step ({label} pool)",
+                     profs[label], "codr_matmul")
+        del pool
+
+    # every request against its solo reference, tokens and logits bits
+    ref_rows = []
+    for i, (p, h, out) in enumerate(zip(prompts, handles, outs)):
+        toks, rows = cb.generate_reference(p, max_new_tokens=BATCH_GEN,
+                                           record_logits=True)
+        ref_rows.append((toks, np.stack(rows)))
+        if out != toks:
+            first = next(j for j, (a, b) in enumerate(zip(out, toks))
+                         if a != b)
+            fail(f"batcher: request {i} (prompt {len(p)}) differs from its "
+                 f"solo reference at token {first}: {out} vs {toks}")
+        diff = float(np.abs(np.stack(h.logits) - ref_rows[-1][1]).max())
+        if not all(np.array_equal(a, b) for a, b in zip(h.logits, rows)):
+            fail(f"batcher: request {i} logits differ from its solo "
+                 f"reference (max-abs {diff})")
+    say("batcher: all 6 requests equal their solo references, tokens and "
+        "logits bit for bit")
+
+    # bf16 paged pool: the dense pool's tokens
+    paged = ContinuousBatcher(packs, cfg, n_slots=4, max_len=96,
+                              kv_page_size=16)
+    _, paged_outs = _pooled_run(paged, prompts)
+    paged.stop_async()
+    if paged_outs != outs:
+        fail(f"batcher: the bf16 paged pool's tokens {paged_outs} differ "
+             f"from the dense pool's {outs}")
+    # int8 paged pool, teacher-forced through the dense tokens
+    int8 = ContinuousBatcher(packs, cfg, n_slots=4, max_len=96,
+                             kv_dtype="int8")
+    devs = []
+    for i, (p, (toks, rows)) in enumerate(zip(prompts, ref_rows)):
+        got = int8.replay_logits(p, toks)
+        if not np.array_equal(got[0], rows[0]):
+            fail(f"batcher: int8 prefill row of request {i} is not bit-exact")
+        spread = float(rows.max() - rows.min()) or 1.0
+        devs.append(float(np.abs(got - rows).max()) / spread)
+    kv = {"dense_bf16": cb.kv_bytes(), "paged_bf16": paged.kv_bytes(),
+          "paged_int8": int8.kv_bytes()}
+    say(f"batcher: bf16 paged (page 16) tokens == dense tokens; int8 paged "
+        f"teacher-forced deviation per request {[round(d, 5) for d in devs]}"
+        f" of the dense logit spread (bound 0.10); kv_bytes {kv}")
+    if not max(devs) < 0.10:
+        fail(f"batcher: int8 deviation {max(devs)} >= 0.10 of the spread")
+
+    t0 = time.perf_counter()
+    small = run_serve_continuous(check=True, use_codr=True)
+    say(f"batcher: run_serve_continuous(check=True) at its smoke size on "
+        f"the card: {small['checked']}/{small['n_requests']} checked, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if small["checked"] != small["n_requests"]:
+        fail("run_serve_continuous(check=True) checked too few requests")
+    return {"launches": launches, "launches_by_impl": by_impl,
+            "prefill_launches_by_impl": pre, "decode_launches_by_impl": dec,
+            "tokens_s": n_tok / wall, "wall_ms": wall * 1e3,
+            "step_ms_median": step_ms, "step_ms": step_list,
+            "prefill_ms": pre_list, "steps_run": cb.steps_run,
+            "prefills_run": cb.prefills_run, "peak_active": cb.peak_active,
+            "kv_bytes": kv, "int8_deviation": devs, "profile": profs}
+
+
+def cost_model_line(compiled) -> None:
+    """The paper's Fig. 7/8 comparison over the VGG16 layers of the first
+    path, from their measured encoded bits: SRAM accesses and energy of
+    the CoDR, UCNN and SCNN dataflows under the 45 nm cost model.  A
+    model estimate of the paper's ASIC, not a measurement on this card."""
+    from repro_torch.configs.paper_cnns import VGG16
+    from repro_torch.core import cost_model, dataflow
+    from repro_torch.core.baselines import (scnn_compress_bits,
+                                            ucnn_compress_bits)
+    sram = dict.fromkeys(("codr", "ucnn", "scnn"), 0.0)
+    energy = dict(sram)
+    for layer, s in zip(compiled.model.layers, VGG16):
+        code = layer.code
+        nu = sum(len(u.unique_vals) for u in code.ucr)
+        nn = sum(u.n_nonzero for u in code.ucr)
+        for name, fn, tiling, bits in (
+                ("codr", dataflow.codr_accesses, dataflow.CODR_TILING,
+                 code.total_bits),
+                ("ucnn", dataflow.ucnn_accesses, dataflow.UCNN_TILING,
+                 ucnn_compress_bits(code.ucr)),
+                ("scnn", dataflow.scnn_accesses, dataflow.SCNN_TILING,
+                 scnn_compress_bits(layer.decoded_weights()))):
+            acc = fn(s, tiling, bits, nu, nn)
+            sram[name] += acc.total_sram
+            energy[name] += cost_model.energy(acc).total_uj
+    say(f"cost model (a model estimate under the paper's 45 nm constants, "
+        f"not a measurement), VGG16 conv1_1..conv3_3 at the published "
+        f"sizes from this run's encoded bits: SRAM accesses UCNN/CoDR "
+        f"{sram['ucnn'] / sram['codr']:.3f}x, SCNN/CoDR "
+        f"{sram['scnn'] / sram['codr']:.3f}x; energy UCNN/CoDR "
+        f"{energy['ucnn'] / energy['codr']:.3f}x, SCNN/CoDR "
+        f"{energy['scnn'] / energy['codr']:.3f}x")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1272,16 +1634,27 @@ def main() -> int:
         f"D={d} {fa_ops.sm90_info(d)}" for d in fa_ops.SM90_HEAD_DIMS))
 
     t0 = time.perf_counter()
-    kernels = [cnn_path(args)]
+    cnn_model, row = cnn_path(args)
+    kernels = [row]
     say(f"cnn path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    row, prefill_qkv = serve_path(args)
+    row, prefill_qkv, packs = serve_path(args)
     kernels.append(row)
     say(f"serve path: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     kernels.append(attention_path(args, prefill_qkv))
     say(f"attention path: {time.perf_counter() - t0:.1f} s")
+    del prefill_qkv
+    t0 = time.perf_counter()
+    _add_phase(kernels[0], "cnn_server", cnn_server_phase(args, cnn_model))
+    say(f"cnn server phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    _add_phase(kernels[1], "batcher",
+               batcher_phase(args, packs, get_config("qwen2.5-3b")))
+    say(f"batcher phase: {time.perf_counter() - t0:.1f} s")
+    cost_model_line(cnn_model)
 
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

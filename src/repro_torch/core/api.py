@@ -396,6 +396,32 @@ class CompiledModel:
         """Dense oracle on the dequantized decoded weights."""
         return self.model.quantized_reference(batch)
 
+    def serve(self, *, max_batch: int = 8, flush_deadline_s: float = 0.01,
+              max_pending: int | None = None):
+        """Batched request path over this executable
+        (:class:`repro_torch.core.serving.CodrBatchServer`).
+
+        ``max_batch``         dispatch size cap AND the async path's load
+                              trigger.
+        ``flush_deadline_s``  async latency trigger: the longest a
+                              pending :meth:`CodrBatchServer.submit_async`
+                              request waits before a partial batch is
+                              flushed anyway.
+        ``max_pending``       bounded admission: with a full queue,
+                              ``submit``/``submit_async`` shed the request
+                              with ``RejectedError`` (retry-after hint)
+                              instead of queueing unboundedly.  ``None``
+                              (default) keeps the queue unbounded.
+
+        The synchronous path (``submit``/``flush``) ignores the deadline —
+        the caller owns batching cadence there.  Resilience hooks wait
+        for ROADMAP A7.
+        """
+        from repro_torch.core.serving import CodrBatchServer
+        return CodrBatchServer(self, max_batch=max_batch,
+                               flush_deadline_s=flush_deadline_s,
+                               max_pending=max_pending)
+
     # -- accounting ---------------------------------------------------------
     def stats(self):
         """Per-layer :class:`repro_torch.core.engine.LayerStats`."""

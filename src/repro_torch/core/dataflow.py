@@ -1,19 +1,22 @@
 """CoDR dataflow accounting: tiling and SRAM access counting (paper
-§III-B, §IV, Table I) — the port's copy of the CoDR half of
-``repro.core.dataflow`` (what ``CodrModel.sram_report`` needs).
+§III-B, §IV, Table I) — the port's copy of ``repro.core.dataflow``.
 
-Analytical loop-nest access counters: CoDR is fully output stationary
-(each output feature written once) and semi input stationary (inputs
-fetched ``ceil(M / (T_PU*T_M))`` times); compressed weights are
-re-streamed per spatial output tile in wide sequential rows.
+Analytical loop-nest access counters for the three dataflows the paper
+compares: CoDR is fully output stationary (each output feature written
+once) and semi input stationary (inputs fetched ``ceil(M / (T_PU*T_M))``
+times), with compressed weights re-streamed per spatial output tile in
+wide sequential rows; UCNN runs factorized dot products with partial
+sums spilling per input-channel group; SCNN is input stationary with a
+cartesian-product scatter.  Pure Python arithmetic, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
-__all__ = ["ConvShape", "TilingConfig", "CODR_TILING", "AccessCounts",
-           "codr_accesses", "codr_tiling"]
+__all__ = ["ConvShape", "TilingConfig", "CODR_TILING", "UCNN_TILING",
+           "SCNN_TILING", "AccessCounts", "codr_accesses", "ucnn_accesses",
+           "scnn_accesses", "codr_tiling"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +71,8 @@ class TilingConfig:
 
 
 CODR_TILING = TilingConfig("CoDR", 8, 4, 4, 8, 8, 20, 20, 64)
+UCNN_TILING = TilingConfig("UCNN", 48, 1, 4, 1, 8, 1, 12, 8)
+SCNN_TILING = TilingConfig("SCNN", 21, 2, 1, 1, 1, 1, 1, 16)
 
 
 def codr_tiling(t_m: int | None = None, t_n: int | None = None, *,
@@ -150,5 +155,62 @@ def codr_accesses(shape: ConvShape, cfg: TilingConfig,
         weight_sram_rows=weight_rows, weight_bits_streamed=weight_bits,
         input_rf=input_rf, weight_rf=weight_rf, output_rf=output_rf,
         mults=mults, accums=accums, crossbar=crossbar,
+        dram_weight_bits=compressed_bits,
+        dram_feature_bytes=float(shape.n_inputs + shape.n_outputs))
+
+
+def ucnn_accesses(shape: ConvShape, cfg: TilingConfig,
+                  compressed_bits: float, n_unique: float,
+                  n_nonzero: float) -> AccessCounts:
+    """UCNN dot-product dataflow: activation-group factorized dot products;
+    partial sums spill to SRAM across input-channel tiles; inputs re-read
+    per overlapping kernel window (T_RI×T_CI = 1×12 buffer only)."""
+    n_groups = math.ceil(shape.n / cfg.t_n)
+    # outputs: read+write per input-channel group (partial-sum accumulation)
+    output_sram = 2.0 * shape.n_outputs * n_groups
+    # inputs: the 1×T_CI row buffer captures kernel-column overlap (÷ck)
+    # but not row overlap; each output row re-reads its RK rows, amortized
+    # over the T_M·T_PU outputs sharing a fetch
+    input_sram = (shape.ro * shape.co * shape.rk * shape.ck * shape.n
+                  / max(shape.ck / shape.stride, 1.0)
+                  * max(1.0, shape.m / (cfg.t_pu * cfg.t_m)))
+    weight_bits = compressed_bits * math.ceil(shape.ro / cfg.t_co)
+    weight_rows = weight_bits / cfg.weight_row_bits
+
+    # factorized dot product: one multiply per unique weight per output,
+    # adds for every nonzero term
+    mults = n_unique * shape.ro * shape.co
+    accums = n_nonzero * shape.ro * shape.co
+    return AccessCounts(
+        name=cfg.name, input_sram=input_sram, output_sram=output_sram,
+        weight_sram_rows=weight_rows, weight_bits_streamed=weight_bits,
+        input_rf=accums, weight_rf=weight_bits / 8.0, output_rf=2.0 * mults,
+        mults=mults, accums=accums, crossbar=accums,
+        dram_weight_bits=compressed_bits,
+        dram_feature_bytes=float(shape.n_inputs + shape.n_outputs))
+
+
+def scnn_accesses(shape: ConvShape, cfg: TilingConfig,
+                  compressed_bits: float, n_unique: float,
+                  n_nonzero: float) -> AccessCounts:
+    """SCNN input-stationary cartesian-product dataflow: inputs read once;
+    every nonzero weight × input product is scattered through the crossbar
+    into output accumulator banks, spilling partial sums to SRAM per
+    input-channel step (T_N = 1)."""
+    input_sram = float(shape.n_inputs)                          # stationary
+    # psum spills: the accumulator banks hold one output tile; the
+    # scatter revisits outputs once per input-channel step
+    n_steps = math.ceil(shape.n / cfg.t_n)
+    output_sram = 1.0 * shape.n_outputs * n_steps               # psum spills
+    weight_bits = compressed_bits
+    weight_rows = weight_bits / cfg.weight_row_bits
+    density = n_nonzero / max(shape.n_weights, 1)
+    mults = shape.macs * density                                # all nonzero
+    accums = mults
+    return AccessCounts(
+        name=cfg.name, input_sram=input_sram, output_sram=output_sram,
+        weight_sram_rows=weight_rows, weight_bits_streamed=weight_bits,
+        input_rf=mults, weight_rf=weight_bits / 8.0, output_rf=2.0 * mults,
+        mults=mults, accums=accums, crossbar=accums,
         dram_weight_bits=compressed_bits,
         dram_feature_bytes=float(shape.n_inputs + shape.n_outputs))

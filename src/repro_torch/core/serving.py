@@ -10,12 +10,22 @@ report of encoded bits (CoDR) vs UCNN / SCNN / the fixed-width pack.
 
 The RLE accounting is NumPy on the host, as in the reference; the
 applied quantization is torch on the leaf's device, with the arithmetic
-of :func:`repro_torch.core.codr_linear.quantize_restrict`.  The batch
-server (``AsyncWorkerLoop`` / ``CodrBatchServer``) waits for ROADMAP A4.
+of :func:`repro_torch.core.codr_linear.quantize_restrict`.
+
+The serving half: :class:`AsyncWorkerLoop`, the worker-thread chassis
+shared with :class:`repro_torch.core.batching.ContinuousBatcher`, and
+:class:`CodrBatchServer`, the bucketed sync/async batch server over a
+compiled CNN (``CompiledModel.serve``).  Its async path stages each
+batch into pinned host memory and copies it to the card on a side
+stream while the previous batch computes.  Fault injection, retry and
+worker restart wait for ROADMAP A7.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
+from concurrent import futures
 
 import numpy as np
 import torch
@@ -24,10 +34,13 @@ from repro_torch.core import rle, ucr
 from repro_torch.core.baselines import scnn_compress_bits, ucnn_compress_bits
 from repro_torch.core.codr_linear import choose_bits, quantize_restrict
 from repro_torch.core.tree import map_with_path
+from repro_torch.runtime.resilience import (DeadlineExceeded, RejectedError,
+                                            WorkerCrashed)
 
 __all__ = ["MIN_COMPRESS_SIZE", "TensorReport", "compress_tensor",
            "account_tensor", "codr_compress_params", "codr_report",
-           "codr_serving_stats"]
+           "codr_serving_stats", "AsyncWorkerLoop", "FlushDispatchError",
+           "CodrBatchServer"]
 
 MIN_COMPRESS_SIZE = 1024           # skip tiny leaves (norms, biases)
 
@@ -202,3 +215,575 @@ def codr_serving_stats(cfg, *, n_unique: int = 16, seed: int = 0,
         "pack_bits_per_weight": pack_pw,
         "source": source,
     }
+
+
+# ---------------------------------------------------------------------------
+# async worker chassis (shared by CodrBatchServer and ContinuousBatcher)
+# ---------------------------------------------------------------------------
+
+class AsyncWorkerLoop:
+    """Condition-variable worker-thread chassis: lazy daemon start,
+    stop/drain/restart, and the can't-stop-from-the-worker guard.
+
+    Subclasses provide the actual work:
+
+    * :meth:`_loop` — the worker body.  It must re-check
+      ``self._stopping`` under ``self._cv`` and return once stopping
+      *and* (when draining) the pending work is gone.
+    * :meth:`_cancel_pending_locked` — called under ``self._cv`` by
+      ``stop_async(drain=False)`` to drop queued work (cancel futures,
+      fail handles, ...).
+    * :meth:`_fail_live_locked` — called under ``self._cv`` when the
+      worker died, to deliver the failure to every live future/handle.
+
+    All shared state transitions happen under ``self._cv``; subclasses
+    take the same lock for their own queue state so one lock orders
+    everything.
+
+    **Supervision**: the worker thread runs :meth:`_loop` under
+    :meth:`_run_worker`, which catches *any* escape — including
+    ``BaseException`` crashes — and fails every live future/handle with
+    :class:`~repro_torch.runtime.resilience.WorkerCrashed`, so
+    ``result()`` never hangs on a dead loop; the next submit starts a
+    fresh worker.  Restarting in place under a ``RestartPolicy``, fault
+    injection and retry wait for ROADMAP A7: :meth:`configure_resilience`
+    refuses them, and :meth:`_fire` marks the injection sites.
+    """
+
+    _thread_name = "async-worker"
+
+    def __init__(self) -> None:
+        self._cv = threading.Condition()
+        self._worker: threading.Thread | None = None   # guarded-by: _cv
+        self._stopping = False                         # guarded-by: _cv
+        self._injector = None      # a FaultInjector once ROADMAP A7 lands
+        self.worker_crashes = 0                        # guarded-by: _cv
+        self.worker_restarts = 0                       # guarded-by: _cv
+
+    # -- subclass hooks -----------------------------------------------------
+    def _loop(self) -> None:
+        raise NotImplementedError
+
+    def _cancel_pending_locked(self) -> None:
+        raise NotImplementedError
+
+    def _fail_live_locked(self, exc: BaseException) -> None:
+        """Under ``self._cv``: deliver ``exc`` to every live future /
+        handle (pending *and* in-flight) so no caller hangs after the
+        worker died.  Subclasses with queues must override."""
+
+    # -- resilience ---------------------------------------------------------
+    def configure_resilience(self, *, injector=None, retry_policy=None,
+                             restart_policy=None, supervisor=None):
+        """The reference installs a fault injector, a retry policy, a
+        restart policy and a serving supervisor here.  None of them is
+        ported yet (ROADMAP A7), so any of them raises
+        ``NotImplementedError`` rather than being dropped unseen; with
+        all four ``None`` this returns ``self``, as the reference does."""
+        given = [name for name, v in (
+            ("injector", injector), ("retry_policy", retry_policy),
+            ("restart_policy", restart_policy), ("supervisor", supervisor))
+            if v is not None]
+        if given:
+            raise NotImplementedError(
+                f"configure_resilience({', '.join(given)}=...): fault "
+                f"injection, retry, restart and the serving supervisor are "
+                f"not ported yet (ROADMAP A7)")
+        return self
+
+    def _fire(self, site: str) -> None:
+        """Fault-injection site hook: one attribute load + ``None``
+        check when disabled — the cost a production dispatch pays."""
+        inj = self._injector
+        if inj is not None:
+            inj.fire(site)
+
+    def _run_worker(self) -> None:
+        """Thread target: supervise :meth:`_loop`.  A normal return ends
+        the thread; any escape (an ``Exception`` or a ``BaseException``
+        crash) fails all live work with ``WorkerCrashed`` (chaining the
+        cause) and clears ``self._worker`` so a later submit can lazily
+        start a fresh worker."""
+        try:
+            self._loop()
+        except BaseException as e:  # noqa: BLE001 — supervision net
+            with self._cv:
+                self.worker_crashes += 1
+                err = WorkerCrashed(f"{self._thread_name} worker died: {e!r}")
+                err.__cause__ = e
+                # clear the thread slot BEFORE failing waiters: a woken
+                # submitter may resubmit at once and must be able to
+                # start a fresh worker
+                self._worker = None
+                self._fail_live_locked(err)
+                self._cv.notify_all()
+
+    # -- lifecycle ----------------------------------------------------------
+    def start_async(self):
+        """Start the worker explicitly (idempotent)."""
+        with self._cv:
+            if self._stopping:
+                raise RuntimeError(f"{type(self).__name__} is stopping")
+            if self._worker is None or not self._worker.is_alive():
+                self._start_locked()
+        return self
+
+    def _start_locked(self) -> None:
+        self._worker = threading.Thread(target=self._run_worker,
+                                        name=self._thread_name,
+                                        daemon=True)
+        self._worker.start()
+
+    def stop_async(self, *, drain: bool = True) -> None:
+        """Stop the worker.  ``drain=True`` (default) lets it finish the
+        pending work first; ``drain=False`` cancels pending work.
+        Idempotent; the loop can be restarted with :meth:`start_async`
+        afterwards.  Must not be called from the worker itself (e.g.
+        inside a ``Future`` done-callback, which runs on the worker
+        thread) — that raises ``RuntimeError`` without corrupting state.
+        """
+        with self._cv:
+            worker = self._worker
+            if worker is threading.current_thread():
+                raise RuntimeError(
+                    f"stop_async called from the {self._thread_name} "
+                    "worker itself (done callbacks run on the worker "
+                    "thread) — stop from another thread")
+            self._stopping = True
+            if not drain:
+                self._cancel_pending_locked()
+            self._cv.notify_all()
+        try:
+            if worker is not None:
+                worker.join()
+        finally:
+            with self._cv:
+                self._worker = None
+                self._stopping = False
+
+    def __enter__(self):
+        return self.start_async()
+
+    def __exit__(self, *exc) -> None:
+        self.stop_async(drain=True)
+
+
+# ---------------------------------------------------------------------------
+# batched request path over a CoDR engine model
+# ---------------------------------------------------------------------------
+
+class FlushDispatchError(RuntimeError):
+    """A :meth:`CodrBatchServer.flush` chunk dispatch failed.
+
+    Attributes:
+        partial: submission-order output list for the flushed queue —
+            rows computed by chunks that succeeded before the failure,
+            ``None`` elsewhere.
+        failed: queue positions (within the flushed queue) of the
+            requests in the chunk whose dispatch raised.  These are
+            consumed, not requeued.
+        requeued: how many undispatched requests were restored to the
+            server queue (they will be served by the next ``flush``).
+    """
+
+    def __init__(self, msg: str, *, partial, failed, requeued):
+        super().__init__(msg)
+        self.partial = partial
+        self.failed = failed
+        self.requeued = requeued
+
+
+@dataclasses.dataclass
+class _AsyncReq:
+    """One queued async request: the sample, its future, and the
+    absolute monotonic deadline (``None`` ⇒ no deadline)."""
+
+    sample: np.ndarray
+    future: futures.Future
+    deadline: float | None = None
+
+
+def _to_host(y: torch.Tensor) -> np.ndarray:
+    """A model output as a host array (waits for the device)."""
+    return y.detach().to("cpu").numpy()
+
+
+class CodrBatchServer(AsyncWorkerLoop):
+    """Batched inference over a CoDR executable (a
+    :class:`repro_torch.core.engine.CodrModel` or a
+    :class:`repro_torch.core.api.CompiledModel` — anything with ``.run``
+    and ``.device``).
+
+    Single-sample requests are queued and executed together in batches,
+    the serving-side complement of the engine's encode-once/run-many
+    contract.  Dispatch is **size-bucketed**: requests are grouped by
+    sample shape, and ragged tail batches are padded (with copies of the
+    last sample) up to the next power-of-two bucket (≤ ``max_batch``),
+    so a mixed stream runs at most ``len(shapes) × log2(max_batch)+1``
+    batch shapes while padding waste stays below 2x.
+
+    Two request paths share that dispatch core:
+
+    * **Synchronous** — :meth:`submit` + :meth:`flush` (or
+      :meth:`serve`): the caller owns batching cadence; a dispatch
+      failure raises out of ``flush``.
+    * **Asynchronous** — :meth:`submit_async` returns a
+      :class:`concurrent.futures.Future` immediately; a background flush
+      loop dispatches when either ``max_batch`` requests are pending
+      (load trigger) or the oldest pending request has waited
+      ``flush_deadline_s`` (latency trigger).  Consecutive batches are
+      **double-buffered**: on the card, batch *i+1* is staged in pinned
+      host memory and copied on a side stream while batch *i* computes;
+      the compute stream waits on the copy's event.  A dispatch failure
+      — a failed staging copy included — propagates into exactly the
+      futures of the failed batch; other batches are unaffected.
+
+    Outputs are host ``np.ndarray`` rows, as in the reference.  The loop
+    starts lazily on first ``submit_async`` (or via :meth:`start_async`)
+    and is joined by :meth:`stop_async` / ``with server: ...``.
+    """
+
+    _thread_name = "codr-batch-server"
+
+    def __init__(self, model, *, max_batch: int = 8,
+                 flush_deadline_s: float = 0.01,
+                 max_pending: int | None = None):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if flush_deadline_s <= 0:
+            raise ValueError("flush_deadline_s must be > 0")
+        if max_pending is not None and max_pending < 1:
+            raise ValueError("max_pending must be >= 1 (or None)")
+        super().__init__()                  # _cv / _worker / _stopping
+        self.model = model
+        self.max_batch = max_batch
+        self.flush_deadline_s = flush_deadline_s
+        self.max_pending = max_pending      # bounded admission (None=∞)
+        device = getattr(model, "device", None)
+        # the async path's copy stream (used by the worker thread only)
+        self._copy_stream = (torch.cuda.Stream(device) if device is not None
+                             and device.type == "cuda" else None)
+        self._queue: list[tuple[np.ndarray, float | None]] = []  # guarded-by: _cv
+        self._next_id = 0                   # guarded-by: _cv
+        self.batches_run = 0                # guarded-by: _cv
+        self.requests_served = 0            # guarded-by: _cv
+        self.bucket_counts: dict[int, int] = {}   # guarded-by: _cv
+        self.requests_shed = 0              # guarded-by: _cv
+        self.requests_expired = 0           # guarded-by: _cv
+        # -- async state ------------------------------------------------
+        self._async_queue: list[_AsyncReq] = []   # guarded-by: _cv
+        self._oldest_t: float | None = None       # guarded-by: _cv
+
+    def _bucket(self, n_real: int) -> int:
+        b = 1
+        while b < n_real:
+            b *= 2
+        return min(b, self.max_batch)
+
+    def _chunks(self, samples: list[np.ndarray]):
+        """Shared batching core: group positions by sample shape, split
+        into ≤ ``max_batch`` chunks, pad each to its power-of-two bucket.
+        Yields ``(positions, batch, n_real, bucket)`` with ``batch`` a
+        stacked host array of ``bucket`` rows."""
+        by_shape: dict[tuple, list[int]] = {}
+        for pos, x in enumerate(samples):
+            by_shape.setdefault(x.shape, []).append(pos)
+        for positions in by_shape.values():
+            for i in range(0, len(positions), self.max_batch):
+                chunk_pos = positions[i : i + self.max_batch]
+                chunk = [samples[p] for p in chunk_pos]
+                n_real = len(chunk)
+                bucket = self._bucket(n_real)
+                if n_real < bucket:          # pad → bucketed batch shape
+                    chunk = chunk + [chunk[-1]] * (bucket - n_real)
+                yield chunk_pos, np.stack(chunk), n_real, bucket
+
+    def _count(self, n_real: int, bucket: int) -> None:
+        # locked: the sync flush (caller thread) and the async flush
+        # loop (worker thread) both account onto these counters
+        with self._cv:
+            self.batches_run += 1
+            self.requests_served += n_real
+            self.bucket_counts[bucket] = \
+                self.bucket_counts.get(bucket, 0) + 1
+
+    def _admit_deadline(self, deadline_s: float | None) -> float | None:
+        if deadline_s is None:
+            return None
+        if deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0 (or None)")
+        return time.monotonic() + deadline_s
+
+    def _shed_locked(self, pending: int) -> None:
+        """Under ``self._cv``: reject admission when the bounded queue
+        is full (``RejectedError`` with a retry-after hint — one flush
+        deadline is when capacity frees up at the latest)."""
+        if self.max_pending is not None and pending >= self.max_pending:
+            self.requests_shed += 1
+            raise RejectedError(
+                f"admission queue full ({pending}/{self.max_pending} "
+                f"pending); retry in ~{self.flush_deadline_s:.3f}s",
+                retry_after_s=self.flush_deadline_s)
+
+    # -- synchronous path ---------------------------------------------------
+    def submit(self, x: np.ndarray, *, deadline_s: float | None = None
+               ) -> int:
+        """Queue one sample (no batch dim).  Returns its request id.
+
+        Ids come from a dedicated monotonic counter, issued exactly once,
+        forever — never derived from ``requests_served``, which advances
+        in chunk order during :meth:`flush`.
+
+        ``deadline_s`` bounds how long the request may wait in the
+        queue: if the next :meth:`flush` starts after the deadline, the
+        request is dropped (its output row is ``None``, counted in
+        ``requests_expired``).  With ``max_pending`` set, a full queue
+        rejects admission with ``RejectedError``.
+
+        Thread-safe: queue append and id issue happen under the same
+        lock the async worker and :meth:`flush` take.
+        """
+        sample = np.asarray(x, dtype=np.float32)
+        deadline = self._admit_deadline(deadline_s)
+        with self._cv:
+            self._shed_locked(len(self._queue))
+            self._queue.append((sample, deadline))
+            rid = self._next_id
+            self._next_id += 1
+        return rid
+
+    def flush(self) -> list[np.ndarray]:
+        """Run all queued requests; returns outputs in submission order.
+
+        If a chunk's dispatch raises, the failure is re-raised as
+        :class:`FlushDispatchError` carrying the already-computed
+        partial results, and every *undispatched* request is restored
+        to the queue head (submission order preserved) so the next
+        ``flush`` serves them.  The failed chunk itself is NOT
+        requeued: a poison request would otherwise kill every
+        subsequent flush.  Requests whose ``deadline_s`` already passed
+        are dropped up front (``None`` output row, ``requests_expired``).
+        """
+        with self._cv:
+            queue, self._queue = self._queue, []
+        outs: list[np.ndarray | None] = [None] * len(queue)
+        live_pos = list(range(len(queue)))
+        if any(d is not None for _, d in queue):
+            now = time.monotonic()
+            live_pos = [p for p in live_pos
+                        if queue[p][1] is None or now < queue[p][1]]
+            if len(live_pos) < len(queue):
+                with self._cv:
+                    self.requests_expired += len(queue) - len(live_pos)
+        chunks = list(self._chunks([queue[p][0] for p in live_pos]))
+        for ci, (chunk_pos, batch, n_real, bucket) in enumerate(chunks):
+            try:
+                y = self._dispatch(batch)
+            except Exception as e:          # noqa: BLE001 — rewrapped
+                qpos = [live_pos[p] for p in chunk_pos]
+                tail = sorted(live_pos[p] for c in chunks[ci + 1:]
+                              for p in c[0])
+                with self._cv:
+                    self._queue[:0] = [queue[p] for p in tail]
+                raise FlushDispatchError(
+                    f"dispatch failed on a chunk of {n_real} request(s) "
+                    f"(bucket {bucket}); {len(tail)} undispatched "
+                    f"request(s) restored to the queue",
+                    partial=outs, failed=qpos,
+                    requeued=len(tail)) from e
+            for p, row in zip(chunk_pos, y[:n_real]):
+                outs[live_pos[p]] = row
+            self._count(n_real, bucket)
+        return outs
+
+    def _dispatch(self, batch: np.ndarray) -> np.ndarray:
+        """One synchronous dispatch of a host chunk: fire the injection
+        site, run the model, block to host."""
+        self._fire("server.dispatch")
+        return _to_host(self.model.run(batch))
+
+    def serve(self, samples) -> list[np.ndarray]:
+        """Convenience: submit + flush a list of single samples."""
+        for s in samples:
+            self.submit(s)
+        return self.flush()
+
+    # -- asynchronous path --------------------------------------------------
+    @property
+    def async_pending(self) -> int:
+        """Requests submitted via :meth:`submit_async` not yet dispatched."""
+        with self._cv:
+            return len(self._async_queue)
+
+    def submit_async(self, x: np.ndarray, *,
+                     deadline_s: float | None = None) -> futures.Future:
+        """Queue one sample (no batch dim) on the background flush loop.
+
+        Returns immediately with a :class:`concurrent.futures.Future`
+        that resolves to this sample's output row (host ``np.ndarray``)
+        once its batch is dispatched — by the ``max_batch`` load trigger
+        or the ``flush_deadline_s`` latency trigger, whichever fires
+        first.  If the batch's staging or dispatch raises, the exception
+        lands on the future.  Starts the flush loop if it is not
+        running.  Raises ``RuntimeError`` after :meth:`stop_async` began
+        (a future that could never resolve must not be issued).
+
+        ``deadline_s`` bounds queue wait: a request still undispatched
+        when its deadline passes resolves to
+        :class:`~repro_torch.runtime.resilience.DeadlineExceeded`.  With
+        ``max_pending`` set, a full admission queue sheds the request
+        with ``RejectedError`` (``retry_after_s`` hint).
+        """
+        fut: futures.Future = futures.Future()
+        sample = np.asarray(x, dtype=np.float32)
+        deadline = self._admit_deadline(deadline_s)
+        with self._cv:
+            if self._stopping:
+                raise RuntimeError("server is stopping; submit_async "
+                                   "rejected (future would never resolve)")
+            self._shed_locked(len(self._async_queue))
+            if self._worker is None or not self._worker.is_alive():
+                self._start_locked()
+            self._async_queue.append(_AsyncReq(sample, fut, deadline))
+            if self._oldest_t is None:
+                self._oldest_t = time.monotonic()
+            self._cv.notify_all()
+        return fut
+
+    def _cancel_pending_locked(self) -> None:
+        for req in self._async_queue:
+            req.future.cancel()
+        self._async_queue.clear()
+        self._oldest_t = None
+
+    def _fail_live_locked(self, exc: BaseException) -> None:
+        # the worker died: every undispatched future gets the
+        # WorkerCrashed (already-cancelled ones stay cancelled)
+        for req in self._async_queue:
+            if req.future.set_running_or_notify_cancel():
+                req.future.set_exception(exc)
+        self._async_queue.clear()
+        self._oldest_t = None
+
+    def _loop(self) -> None:
+        """Background worker: wait for a trigger, take the whole queue,
+        dispatch it bucketed with double-buffered staging."""
+        while True:
+            # injection site "server.worker": fires BEFORE the queue is
+            # taken, so a crash here leaves every pending request queued
+            self._fire("server.worker")
+            with self._cv:
+                while not self._stopping:
+                    if len(self._async_queue) >= self.max_batch:
+                        break                      # load trigger
+                    if self._oldest_t is not None:
+                        wait = (self._oldest_t + self.flush_deadline_s
+                                - time.monotonic())
+                        if wait <= 0:
+                            break                  # latency trigger
+                        self._cv.wait(wait)
+                    else:
+                        self._cv.wait()
+                taken = self._async_queue
+                self._async_queue = []
+                self._oldest_t = None
+                stopping = self._stopping
+            if taken:
+                self._dispatch_async(taken)
+            if stopping:
+                return
+
+    def _stage(self, batch: np.ndarray):
+        """Start one host chunk's transfer to the model's device: pinned
+        host memory, a non-blocking copy on the side stream, and an
+        event recorded after it.  On a CPU model this is the host array
+        itself."""
+        if self._copy_stream is None:
+            return batch
+        host = torch.from_numpy(batch).pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            x = host.to(self._copy_stream.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return x, ready, host
+
+    def _try_stage(self, batch: np.ndarray):
+        """:meth:`_stage`, with a failure returned rather than raised: it
+        belongs to that batch alone, and :meth:`_run_staged` raises it on
+        the batch's turn, so it lands on exactly that batch's futures."""
+        try:
+            return self._stage(batch)
+        except Exception as e:      # noqa: BLE001 — raised on the batch's turn
+            return e
+
+    def _run_staged(self, staged) -> torch.Tensor:
+        """Run the model on a staged chunk: the compute stream waits for
+        the copy, and the batch's device memory is marked as used on the
+        compute stream so the allocator cannot hand it out before the
+        compute is done."""
+        if isinstance(staged, Exception):
+            raise staged
+        self._fire("server.dispatch")
+        if isinstance(staged, np.ndarray):
+            return self.model.run(staged)
+        x, ready, _host = staged
+        compute = torch.cuda.current_stream(x.device)
+        compute.wait_event(ready)
+        x.record_stream(compute)
+        return self.model.run(x)
+
+    def _dispatch_async(self, taken) -> None:
+        """Run one drained queue: stage batch i+1's host→device transfer
+        while batch i computes (double buffering), resolve each batch's
+        futures as its results arrive, and propagate a failed staging or
+        dispatch into exactly that batch's futures."""
+        # drop requests cancelled while queued BEFORE batching — they
+        # must neither burn compute nor inflate requests_served (this
+        # also moves every surviving future to RUNNING, so a cancel
+        # arriving after this point is a no-op).  Deadline-expired
+        # requests resolve to DeadlineExceeded here, for the same reason
+        live = []
+        now = time.monotonic()
+        expired = 0
+        for req in taken:
+            if not req.future.set_running_or_notify_cancel():
+                continue
+            if req.deadline is not None and now >= req.deadline:
+                expired += 1
+                req.future.set_exception(DeadlineExceeded(
+                    "deadline expired before dispatch"))
+                continue
+            live.append(req)
+        if expired:
+            with self._cv:
+                self.requests_expired += expired
+        if not live:
+            return
+        futs = [r.future for r in live]
+        chunks = list(self._chunks([r.sample for r in live]))
+        staged: list = [None] * len(chunks)
+        staged[0] = self._try_stage(chunks[0][1])
+        for i, (chunk_pos, _, n_real, bucket) in enumerate(chunks):
+            try:
+                y_dev = self._run_staged(staged[i])
+            except Exception as e:      # noqa: BLE001 — lands on futures
+                y_dev, err = None, e
+            else:
+                err = None
+            if i + 1 < len(chunks):     # overlaps with batch i's compute
+                staged[i + 1] = self._try_stage(chunks[i + 1][1])
+            if err is None:
+                try:
+                    y = _to_host(y_dev)     # block on batch i only
+                except Exception as e:  # noqa: BLE001 — lands on futures
+                    err = e
+            staged[i] = None            # release batch i's buffers
+            if err is None:
+                # account BEFORE resolving: a caller waking up on
+                # Future.result() must already see this batch counted
+                self._count(n_real, bucket)
+            for j, p in enumerate(chunk_pos):
+                if err is not None:
+                    futs[p].set_exception(err)
+                else:
+                    futs[p].set_result(y[j])

@@ -1,19 +1,20 @@
 """Serving driver: batched prefill + greedy decode from CoDR-compressed
-weights — ``run_serve`` of ``repro.launch.serve``, decoder-only branch.
+weights — ``run_serve`` and ``run_serve_continuous`` of
+``repro.launch.serve``, decoder-only branch.
 
 ``use_codr=True`` compiles the params tree onto the packed
 representation (:func:`repro_torch.api.compile_params`), so every
 projection matmul resolves through the backend registry into the
 ``codr_matmul`` CUDA kernel (its plain version on the CPU) and the
 reported weight bytes are measured on the stored packs.  Runs on the
-card unless the caller passes ``device="cpu"``.  The command line, the
-continuous batcher, chaos and packed-checkpoint modes wait for ROADMAP
-A12 / A6 / A7 / A8.
+card unless the caller passes ``device="cpu"``.  The command line waits
+for ROADMAP A12, chaos mode for A7 and packed checkpoints for A8.
 """
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 import repro_torch.api as codr
@@ -23,7 +24,7 @@ from repro_torch.core.serving import codr_serving_stats
 from repro_torch.core.tree import leaves_with_path
 from repro_torch.models import get_model
 
-__all__ = ["greedy_decode", "run_serve"]
+__all__ = ["greedy_decode", "run_serve", "run_serve_continuous"]
 
 
 def _sync(device: torch.device) -> None:
@@ -138,3 +139,153 @@ def run_serve(*, arch: str = "qwen2.5-3b", batch: int = 4,
               f"codr(U={codr_unique})≈{stats['codr_gb']*scale:.2f} {unit} "
               f"({stats['codr_bits_per_weight']:.2f} bits/weight)")
     return result
+
+
+def run_serve_continuous(*, arch: str = "qwen2.5-3b", n_requests: int = 4,
+                         n_slots: int = 4, prompt_len: int = 8,
+                         gen_len: int = 8, max_len: int = 64,
+                         use_codr: bool = False, codr_unique: int = 16,
+                         codr_backend: str = "codr_matmul",
+                         check: bool = False, seed: int = 0,
+                         chaos_seed: int | None = None,
+                         kv_dtype: str | None = None,
+                         kv_page_size: int | None = None,
+                         packed_ckpt: str | None = None,
+                         verbose: bool = True, device=None) -> dict:
+    """Continuous-batching serving run: ``n_requests`` mixed-length
+    prompts streamed through a :class:`repro_torch.core.batching
+    .ContinuousBatcher` slot pool on the smoke variant of ``arch``,
+    params drawn from a generator seeded ``seed``.  With ``check=True``
+    every streamed output is asserted bit-identical to the sequential
+    solo-decode reference on the same params; lossy KV modes
+    (``kv_dtype="int8"``) additionally replay the dense-cache
+    reference's tokens teacher-forced through the paged pipeline and
+    bound the per-step logit deviation (0.10 of the dense logit
+    spread).  Returns the reference's metrics dict.
+
+    ``chaos_seed`` (fault injection) waits for ROADMAP A7 and
+    ``packed_ckpt`` (packed checkpoints) for A8; both raise."""
+    from repro_torch.core.batching import ContinuousBatcher
+
+    if chaos_seed is not None:
+        raise NotImplementedError("chaos_seed: fault injection is not "
+                                  "ported yet (ROADMAP A7)")
+    if packed_ckpt is not None:
+        raise NotImplementedError("packed_ckpt: packed checkpoints are not "
+                                  "ported yet (ROADMAP A8)")
+    dev = resolve_device(device)
+    cfg = smoke_variant(get_config(arch))
+    api = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    if kv_dtype is None:
+        kv_dtype = "bf16"
+    if kv_dtype == "int8" and kv_page_size is None:
+        kv_page_size = 4 if max_len <= 128 else 16
+
+    params = api.init_params(gen, cfg)
+    compiled = None
+    if use_codr:
+        compiled = codr.compile_params(
+            params, codr.EncodeConfig(n_unique=codr_unique),
+            backend=codr_backend, device=dev)
+        params = compiled.params
+        if verbose:
+            print(compiled.summary())
+
+    rng = np.random.default_rng(seed)
+    # mixed prompt lengths around prompt_len: the join-on-prefill path
+    # must handle ragged admissions
+    lens = [max(1, prompt_len + (i % 3) - 1) for i in range(n_requests)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    max_len = max(max_len, max(lens) + gen_len)    # pool must fit every req
+
+    batcher = ContinuousBatcher(params, cfg, n_slots=n_slots,
+                                max_len=max_len, kv_dtype=kv_dtype,
+                                kv_page_size=kv_page_size, device=dev)
+    t0 = time.monotonic()
+    handles = [batcher.submit(p, max_new_tokens=gen_len) for p in prompts]
+    streamed = [[tok for tok in h] for h in handles]
+    t_total = time.monotonic() - t0
+    batcher.stop_async()
+
+    n_tokens = sum(len(s) for s in streamed)
+    toks_per_s = n_tokens / max(t_total, 1e-9)
+    kv_bytes = batcher.kv_bytes()
+    if verbose:
+        print(f"continuous batching: {n_requests} requests "
+              f"(prompt lens {lens}) over {n_slots} slots → "
+              f"{n_tokens} tokens in {t_total*1e3:.1f} ms "
+              f"({toks_per_s:.1f} tok/s); steps={batcher.steps_run} "
+              f"prefills={batcher.prefills_run} "
+              f"peak_active={batcher.peak_active}")
+        print(f"KV pool: {kv_dtype}"
+              + (f" paged (page_size={kv_page_size})"
+                 if kv_page_size is not None else " dense")
+              + f", {kv_bytes/1e3:.1f} kB resident")
+        if compiled is not None:
+            stats = codr_serving_stats(cfg, reports=compiled.reports)
+            print(f"weight HBM ({stats['source']} on this model's "
+                  f"tensors): {compiled.hbm_bytes()/1e6:.3f} MB packed, "
+                  f"{stats['pack_bits_per_weight']:.2f} pack bits/weight")
+
+    matched = None
+    check_dev = None
+    if check:
+        matched = 0
+        # a dense-cache twin on the SAME served params is the oracle for
+        # paged modes: bf16-paged must reproduce its tokens bit-exactly;
+        # int8 is lossy, so its contract is the teacher-forced logit
+        # bound (free-running greedy legitimately diverges on near-tied
+        # logits — see ContinuousBatcher.replay_logits)
+        dense_ref = (ContinuousBatcher(params, cfg, n_slots=n_slots,
+                                       max_len=max_len, device=dev)
+                     if kv_page_size is not None else batcher)
+        for p, s in zip(prompts, streamed):
+            same, _ = batcher.generate_reference(p, max_new_tokens=gen_len)
+            if s != same:
+                raise AssertionError(
+                    f"streamed output diverged from the sequential "
+                    f"reference: {s} vs {same}")
+            dense_toks, _ = dense_ref.generate_reference(
+                p, max_new_tokens=gen_len)
+            if kv_dtype == "int8":
+                dense_rows = dense_ref.replay_logits(p, dense_toks)
+                paged_rows = batcher.replay_logits(p, dense_toks)
+                if not np.array_equal(paged_rows[0], dense_rows[0]):
+                    raise AssertionError("prefill logits must be bit-exact "
+                                         "across KV modes")
+                spread = float(dense_rows.max() - dense_rows.min()) or 1.0
+                dev_ = float(np.abs(paged_rows - dense_rows).max()) / spread
+                check_dev = max(check_dev or 0.0, dev_)
+                if not dev_ < 0.10:
+                    raise AssertionError(
+                        f"int8-paged teacher-forced logits deviate "
+                        f"{dev_:.4f} of the dense logit spread (bound 0.10)")
+            elif s != dense_toks:
+                raise AssertionError(
+                    f"bf16 KV must match the dense-cache reference "
+                    f"bit-exactly: {s} vs {dense_toks}")
+            matched += 1
+        if verbose:
+            print(f"check: {matched}/{n_requests} streamed outputs "
+                  f"verified against the dense-cache sequential "
+                  f"reference"
+                  + (f" (worst teacher-forced logit deviation "
+                     f"{check_dev:.4f} of spread, bound 0.10)"
+                     if check_dev is not None else " (bit-identical)"))
+
+    return {
+        "arch": arch, "n_requests": n_requests, "n_slots": n_slots,
+        "prompt_lens": lens, "gen": streamed, "total_s": t_total,
+        "tokens_per_s": toks_per_s, "steps_run": batcher.steps_run,
+        "prefills_run": batcher.prefills_run,
+        "peak_active": batcher.peak_active, "checked": matched,
+        "backend": compiled.backend if compiled is not None else None,
+        "chaos_seed": chaos_seed, "faults_fired": None,
+        "worker_restarts": batcher.worker_restarts,
+        "kv_dtype": kv_dtype, "kv_page_size": kv_page_size,
+        "kv_bytes": kv_bytes, "boot_s": None,
+        "packed_ckpt": packed_ckpt, "check_dev": check_dev,
+    }

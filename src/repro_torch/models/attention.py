@@ -8,7 +8,9 @@ neither does the port (``repro_torch.kernels.flash_attention`` ports
 that kernel behind its own entry point).  Score and accumulator math
 runs in float32 over bfloat16 operands (the reference's ``_einsum_f32``
 on an executing backend).
-The MLA half waits for ROADMAP A5; the paged cache for A6.
+Decode runs against a contiguous cache or a paged one
+(:class:`repro_torch.models.cache.PagedKV`, the continuous batcher's
+pool).  The MLA half waits for ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -16,12 +18,13 @@ import math
 
 import torch
 
+from repro_torch.models import cache as cache_lib
 from repro_torch.models.common import (apply_rope, dense_init, linear,
                                        norm_init, rms_norm)
 
 __all__ = ["flash_attention", "decode_positions", "cache_update",
            "decode_attention", "gqa_init", "gqa_forward", "gqa_decode",
-           "gqa_cache_init"]
+           "gqa_cache_init", "gqa_cache_init_paged"]
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -195,14 +198,24 @@ def gqa_forward(p, x, cfg, positions, *, causal=True):
 
 
 def gqa_decode(p, x, cfg, cache, pos):
-    """Single-token decode.  cache = (k, v), each (B, S, Hkv, hd), updated
-    in place at ``pos`` (scalar, or per-row (B,))."""
+    """Single-token decode.  cache = (k, v), each (B, S, Hkv, hd) or a
+    :class:`~repro_torch.models.cache.PagedKV`, updated in place at
+    ``pos`` (scalar, or per-row (B,) when the batch is a continuous-
+    batching slot pool whose rows sit at different positions)."""
     k_cache, v_cache = cache
     positions = decode_positions(pos, x.shape[0], device=x.device)
     q, k_new, v_new = _qkv(p, x, cfg, positions)
-    k_cache = cache_update(k_cache, k_new, pos)
-    v_cache = cache_update(v_cache, v_new, pos)
-    out = decode_attention(q, k_cache, v_cache, pos)
+    if isinstance(k_cache, cache_lib.PagedKV):
+        # paged lane: write the new row into the slot's page, then run
+        # the standard masked attention over the gathered dense view —
+        # bf16 pages reproduce the contiguous cache byte for byte
+        k_cache = k_cache.update(k_new, pos)
+        v_cache = v_cache.update(v_new, pos)
+        out = decode_attention(q, k_cache.gather(), v_cache.gather(), pos)
+    else:
+        k_cache = cache_update(k_cache, k_new, pos)
+        v_cache = cache_update(v_cache, v_new, pos)
+        out = decode_attention(q, k_cache, v_cache, pos)
     b = x.shape[0]
     out = linear(out.reshape(b, 1, -1), p["o_proj"])
     return out, (k_cache, v_cache)
@@ -213,3 +226,13 @@ def gqa_cache_init(cfg, batch: int, seq: int, dtype=torch.bfloat16, *,
     shape = tuple(lead) + (batch, seq, cfg.n_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def gqa_cache_init_paged(cfg, spec, dtype=torch.bfloat16, *,
+                         lead: tuple = (), device=None):
+    """Paged (k, v) for a :class:`~repro_torch.models.cache.PagedSpec`."""
+    feat = (cfg.n_kv_heads, cfg.head_dim)
+    return (cache_lib.paged_kv_init(spec, feat, dtype, lead=lead,
+                                    device=device),
+            cache_lib.paged_kv_init(spec, feat, dtype, lead=lead,
+                                    device=device))

@@ -84,19 +84,36 @@ def init_params(gen: torch.Generator, cfg) -> dict:
 # caches
 # ---------------------------------------------------------------------------
 
+def _mixer_cache(cfg, batch: int, seq: int, dtype, paged, device):
+    """One GQA mixer's cache, stacked over ``n_periods`` (the only mixer
+    ``_check_supported`` lets through: the MLA cache, paged or not, and
+    the SSM states wait for ROADMAP A5)."""
+    lead = (cfg.n_periods,)
+    if paged is not None:
+        return attn.gqa_cache_init_paged(cfg, paged, dtype, lead=lead,
+                                         device=device)
+    return attn.gqa_cache_init(cfg, batch, seq, dtype, lead=lead,
+                               device=device)
+
+
 def init_cache(cfg, batch: int, seq: int, dtype=DEFAULT_DTYPE, paged=None,
                device=None) -> dict:
-    """Zeroed KV cache, ``{"stack": {"b<i>": (k, v)}}`` with k, v of shape
-    ``(n_periods, batch, seq, n_kv_heads, head_dim)`` on ``device`` (the
-    card unless the caller names another)."""
-    if paged is not None:
-        raise NotImplementedError("the paged KV cache is not ported yet "
-                                  "(ROADMAP A6)")
+    """Zeroed KV cache, ``{"stack": {"b<i>": (k, v)}}`` on ``device`` (the
+    card unless the caller names another): k, v of shape ``(n_periods,
+    batch, seq, n_kv_heads, head_dim)``, or, with ``paged`` (a
+    :class:`repro_torch.models.cache.PagedSpec`), :class:`PagedKV` pools
+    stacked over ``n_periods`` (``batch`` must equal ``paged.n_slots``,
+    ``seq`` its ``max_len``)."""
+    if paged is not None and (batch != paged.n_slots
+                              or seq != paged.max_len):
+        raise ValueError(
+            f"paged cache geometry mismatch: batch={batch}/seq={seq} vs "
+            f"spec n_slots={paged.n_slots}/max_len={paged.max_len}")
     plan = _check_supported(cfg)
     dev = resolve_device(device)
-    return {"stack": {f"b{i}": attn.gqa_cache_init(
-        cfg, batch, seq, dtype, lead=(cfg.n_periods,), device=dev)
-        for i in range(len(plan))}}
+    return {"stack": {f"b{i}": _mixer_cache(cfg, batch, seq, dtype, paged,
+                                            dev)
+                      for i in range(len(plan))}}
 
 
 # ---------------------------------------------------------------------------

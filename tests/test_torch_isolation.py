@@ -38,7 +38,11 @@ def test_port_modules_cover_the_slice():
               "repro_torch.kernels.smm_conv.ref", "repro_torch.kernels._build",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.flash_attention.ref",
-              "repro_torch.configs.paper_cnns"):
+              "repro_torch.configs.paper_cnns",
+              "repro_torch.core.cost_model", "repro_torch.core.serving",
+              "repro_torch.core.batching", "repro_torch.models.cache",
+              "repro_torch.runtime", "repro_torch.runtime.resilience",
+              "repro_torch.launch.serve"):
         assert m in mods
 
 

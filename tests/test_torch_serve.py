@@ -29,7 +29,8 @@ from repro_torch import convert
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.codr_linear import PackedEmbedding, PackedLinear
 from repro_torch.core.serving import codr_compress_params
-from repro_torch.launch.serve import run_serve
+from repro_torch.core.batching import ContinuousBatcher
+from repro_torch.launch.serve import run_serve, run_serve_continuous
 from repro_torch.models import get_model
 
 B, S, N_UNIQUE, N_DECODE = 2, 8, 16, 4
@@ -209,9 +210,14 @@ def test_unported_paths_raise_with_the_roadmap_item(setup):
                                  family="encdec")
     with pytest.raises(NotImplementedError, match="A5"):
         get_model(encdec)
-    cfg = smoke_variant(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="A6"):
-        get_model(cfg).init_cache(cfg, 1, 4, paged=object(), device="cpu")
+    from repro_torch.models.cache import PagedSpec
+    for paged in (None, PagedSpec(page_size=2, max_len=4, n_slots=1)):
+        with pytest.raises(NotImplementedError, match="A5"):
+            get_model(mla).init_cache(mla, 1, 4, paged=paged, device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        run_serve_continuous(device="cpu", chaos_seed=0)
+    with pytest.raises(NotImplementedError, match="A8"):
+        run_serve_continuous(device="cpu", packed_ckpt="boot.codr")
 
 
 def test_entry_points_default_to_the_card():
@@ -221,9 +227,14 @@ def test_entry_points_default_to_the_card():
     calls = [lambda: api.init_cache(cfg, 1, 4),
              lambda: tcodr.compile_params(params, accounting=False),
              lambda: run_serve(batch=1, prompt_len=2, gen_len=1,
-                               verbose=False)]
+                               verbose=False),
+             lambda: ContinuousBatcher(params, cfg, n_slots=1, max_len=8),
+             lambda: run_serve_continuous(n_requests=1, gen_len=1,
+                                          verbose=False)]
     if torch.cuda.is_available():      # with a card they run there
         assert api.init_cache(cfg, 1, 4)["stack"]["b0"][0].is_cuda
+        assert ContinuousBatcher(params, cfg, n_slots=1,
+                                 max_len=8).device.type == "cuda"
         return
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
