@@ -23,8 +23,10 @@ calls:
   TF32; AlexNet conv1 and GoogLeNet conv1 (strided, ``simt`` only) are
   held to the plain version too;
 * transformer serving from packed weights (``init_params`` →
-  ``compile_params`` → ``prefill`` → greedy ``decode_step`` loop, as
-  ``run_serve`` does) at the published widths of qwen2.5-3b, every
+  ``compile_params`` → ``prefill`` → ``greedy_decode``, ``run_serve``'s
+  loop, which replays one decode step captured as a CUDA graph; the
+  same loop run eagerly gives the same tokens and logits bits at every
+  step) at the published widths of qwen2.5-3b, every
   projection on the ``codr_matmul`` kernel: the prefill (M = 128) on
   its tensor-core instance (``sm90``), the decode steps (M = 4) on its
   split-K instance (``splitk``), as the routing rule names them.  Every
@@ -45,8 +47,8 @@ calls:
   round P to bf16 (SDPA, and the plain version so changed) must fail
   that bound.  At the long prompts both instances are timed.
 
-After the three paths, two serving phases drive the same compiled
-models through the port's servers:
+After the three paths, three serving phases drive the same compiled
+models through the port's servers and its checkpoint:
 
 * the CNN batch server (``CompiledModel.serve``, the VGG16 model of the
   first path): 12 single-image requests synchronously, the same 12
@@ -55,16 +57,28 @@ models through the port's servers:
   on the stacked batch at max-abs-diff 0, every ``smm_conv`` launch on
   ``sm90``;
 * the continuous batcher (``ContinuousBatcher``) on the qwen2.5-3b
-  packs of the second path: six prompts over four slots, two joining
-  mid-stream; every request equals its solo ``generate_reference``
-  (tokens and logits bits), a bf16 paged pool reproduces the dense
-  pool's tokens, an int8 paged pool stays within 0.10 of the dense
-  logit spread under teacher forcing; ``run_serve_continuous(check=True)``
-  at its smoke size.  A host-only line gives the paper's cost-model
-  ratios (a model estimate, not a measurement).
+  packs of the second path, its pooled step replayed from a CUDA graph:
+  six prompts over four slots, two joining mid-stream, on the dense,
+  bf16-paged and int8-paged pools, each run captured and eager with the
+  same bits; every request equals its solo ``generate_reference``
+  (tokens and logits bits), the bf16 paged pool equals the dense pool,
+  an int8 paged pool stays within 0.10 of the dense logit spread under
+  teacher forcing; ``run_serve_continuous(check=True)`` at its smoke
+  size; then the dense run under a seeded fault plan (transient errors,
+  a worker crash, latency) with retry and restart, equal to the clean
+  run bit for bit;
+* the packed checkpoint: the full-width packs through ``save_packed``
+  and ``load_packed(mmap=True)`` onto the card, teacher-forced logits
+  bit for bit, then ``run_serve_continuous`` with chaos and a packed
+  checkpoint at its smoke
+  size.  A host-only line gives the paper's cost-model ratios (a model
+  estimate, not a measurement).
 
 Each kernel's launch count is set to 0 just before its path runs and
-read just after.  Each kernel is held against its plain PyTorch version
+read just after.  A CUDA graph's replays launch its kernels with no
+call of their wrappers, so ``codr_matmul``'s counts hold the calls
+(prefill, the warm-up step, the capture) and its row adds the replayed
+launches as captured × replays.  Each kernel is held against its plain PyTorch version
 on the card at the shapes its path gives it, and timed.  The script
 prints one JSON line per the smoke contract: a ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed check
@@ -139,6 +153,10 @@ FA_KERNEL = {"name": "flash_attention", "route": "cuda",
              "simt_source": "src/repro_torch/kernels/flash_attention/csrc/"
                             "flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:67"}
+
+
+# the card's name and power limit, beside every time printed
+SMI = "card not read yet"
 
 
 def fail(msg: str) -> None:
@@ -588,6 +606,81 @@ def _profile_step(api, params, cfg, tokens) -> dict:
     return out
 
 
+def _step_logits(api, params, tokens, cfg, gen_len, *, captured: bool):
+    """``greedy_decode``'s loop with a copy of every step's logits kept:
+    ``decode_step`` eagerly, or one ``CapturedDecode`` replayed."""
+    import torch
+
+    from repro_torch.models.lm import CapturedDecode
+    batch, prompt_len = tokens.shape
+    total = prompt_len + gen_len
+    cache = api.init_cache(cfg, batch, total, device=tokens.device)
+    step = CapturedDecode(params, cache, cfg, batch) if captured else None
+    rows, tok = [], tokens[:, 0]
+    for i in range(total - 1):
+        if step is None:
+            logits, cache = api.decode_step(params, cache, tok, i, cfg)
+        else:
+            logits = step(tok, i)
+        rows.append(logits.clone())
+        tok = (tokens[:, i + 1] if i + 1 < prompt_len
+               else torch.argmax(logits, dim=-1))
+    return rows
+
+
+def _profile_replay(api, params, cfg, tokens, gen_len) -> dict:
+    """``run_serve``'s loop replayed from one CUDA graph over the main
+    path's full-length cache.  After the step that captures, the other
+    steps run back to back (each feeds the next its token on the device;
+    one sync at the end): once timed on the host clock, then again under
+    ``torch.profiler``, which gives the device-busy time and idle share
+    of that window and counts the ``codr_matmul`` kernels the replays
+    launched.  The wrapper's counters must not move in the window."""
+    import torch
+
+    from repro_torch.kernels.codr_matmul import ops
+    from repro_torch.models.lm import CapturedDecode
+    batch, prompt_len = tokens.shape
+    total = prompt_len + gen_len
+    step = CapturedDecode(params, api.init_cache(cfg, batch, total,
+                                                 device=tokens.device),
+                          cfg, batch)
+    step(tokens[:, 0], 0)             # the warm-up, the capture, a replay
+    torch.cuda.synchronize()
+
+    def window():
+        tok = tokens[:, 1]
+        for i in range(1, total - 1):
+            logits = step(tok, i)
+            tok = (tokens[:, i + 1] if i + 1 < prompt_len
+                   else torch.argmax(logits, dim=-1))
+    n = total - 2
+    counted = (ops.launches, ops.captured)
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    out = _profile(window, "codr_matmul", MM_KERNEL_NAMES)
+    per_forward = 7 * cfg.n_layers
+    out.update(replays=n, host_clock_ms_per_step=host_ms / n,
+               profiled_ms_per_step=out["wall_ms"] / n,
+               device_busy_ms_per_step=out["device_busy_ms"] / n)
+    _say_profile(f"serve profile, {n} replayed steps back to back (one "
+                 f"sync at the end) [{SMI}]", out, "codr_matmul")
+    say(f"serve replay window: {host_ms / n:.3f} ms/step on the host clock "
+        f"unprofiled, {out['profiled_ms_per_step']:.3f} ms/step profiled, "
+        f"device busy {out['device_busy_ms_per_step']:.3f} ms/step, idle "
+        f"share {out['idle']}; the profiler counted "
+        f"{out['codr_matmul_launches']} codr_matmul kernels over {n} "
+        f"replays ({per_forward} a replay expected), the wrapper's counters "
+        f"moved {ops.launches - counted[0]} / {ops.captured - counted[1]}")
+    if out["codr_matmul_launches"] != per_forward * n or \
+            (ops.launches, ops.captured) != counted:
+        fail(f"replays launched {out['codr_matmul_launches']} codr_matmul "
+             f"kernels, expected {per_forward} x {n}, or a counter moved")
+    return out
+
+
 def _layer0_qkv(params, cfg, tokens, cache) -> tuple:
     """q, k, v of layer 0's attention in the prefill of ``tokens``,
     computed as ``models.lm.forward`` computes them; k and v are held to
@@ -661,38 +754,77 @@ def serve_path(args) -> tuple:
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = ops.launches
     prefill_by_impl = dict(ops.launches_by_impl)
+    # run_serve's loop on the card: one decode step captured as a CUDA
+    # graph and replayed; the counters tick in the warm-up step, the
+    # capture records its calls (ops.captured) and a replay calls no
+    # wrapper: the profiler counts the replays' kernels further down
+    ops.captured = 0
     t0 = time.perf_counter()
     out, _, n_steps = greedy_decode(api, params, tokens, cfg, gen_len)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = ops.launches
+    captured = ops.captured
     by_impl = dict(ops.launches_by_impl)
     peak = torch.cuda.max_memory_allocated()
     per_forward = 7 * cfg.n_layers
     ms_step = decode_s / n_steps * 1e3
     tok_s = batch * gen_len / decode_s
     say(f"serve main path: prefill {prefill_ms:.3f} ms; {n_steps} decode "
-        f"steps {decode_s * 1e3:.3f} ms ({ms_step:.3f} ms/step); generated "
-        f"tokens/s {tok_s:.3f} (batch {batch} x {gen_len} over the decode "
-        f"loop, prompt replay included); peak device memory {peak} bytes; "
-        f"codr_matmul launches {prefill_launches} in prefill, {launches} in "
-        f"all")
+        f"steps replayed from one CUDA graph {decode_s * 1e3:.3f} ms "
+        f"({ms_step:.3f} ms/step, the warm-up step and the capture "
+        f"included); generated tokens/s {tok_s:.3f} (batch {batch} x "
+        f"{gen_len} over the decode loop, prompt replay included); peak "
+        f"device memory {peak} bytes; codr_matmul launches counted "
+        f"{launches}: {prefill_launches} in prefill, "
+        f"{launches - prefill_launches} in the warm-up step; {captured} "
+        f"calls recorded at the capture, which launch nothing")
     if prefill_launches != per_forward or n_steps != prompt_len + gen_len - 1 \
-            or launches != per_forward * (n_steps + 1):
-        fail(f"codr_matmul launched {prefill_launches} / {launches} times "
-             f"over prefill + {n_steps} steps, expected {per_forward} per "
-             f"forward")
-    # the routing rule's prediction: prefill at M = batch * prompt, every
-    # decode step at M = batch
+            or launches != 2 * per_forward or captured != per_forward:
+        fail(f"codr_matmul counted {prefill_launches} / {launches} launches "
+             f"over prefill + warm-up and {captured} captured calls, "
+             f"expected {per_forward} each")
+    # the routing rule's prediction: prefill at M = batch * prompt, the
+    # warm-up step at M = batch
     want_prefill = dict.fromkeys(ops.IMPLS, 0)
     want_prefill[ops.pick_impl(batch * prompt_len, bits)] += per_forward
     want = dict(want_prefill)
-    want[ops.pick_impl(batch, bits)] += per_forward * n_steps
+    want[ops.pick_impl(batch, bits)] += per_forward
     say(f"serve codr_matmul launches by instance: prefill {prefill_by_impl}, "
-        f"in all {by_impl} (routing predicts {want_prefill} / {want})")
+        f"counted in all {by_impl} (routing predicts {want_prefill} / "
+        f"{want})")
     if prefill_by_impl != want_prefill or by_impl != want:
         fail(f"codr_matmul launches by instance {prefill_by_impl} / "
              f"{by_impl}, the routing rule predicts {want_prefill} / {want}")
+    # the same loop eager: the same tokens
+    t0 = time.perf_counter()
+    out_eager, _, _ = greedy_decode(api, params, tokens, cfg, gen_len,
+                                    eager=True)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if not torch.equal(out, out_eager):
+        fail("the replayed loop's tokens differ from the eager loop's")
+    # and every step's logits, bit for bit, the loop driven step by step
+    eager_logits = _step_logits(api, params, tokens, cfg, gen_len,
+                                captured=False)
+    replay_logits = _step_logits(api, params, tokens, cfg, gen_len,
+                                 captured=True)
+    if len(eager_logits) != n_steps or len(replay_logits) != n_steps:
+        fail(f"{len(eager_logits)} / {len(replay_logits)} steps, expected "
+             f"{n_steps}")
+    for i, (a, b) in enumerate(zip(eager_logits, replay_logits)):
+        if not torch.equal(a, b):
+            fail(f"decode step {i}: replayed logits differ from eager "
+                 f"(max-abs {float((a.float() - b.float()).abs().max())})")
+    del eager_logits, replay_logits
+    graph_loop = {"replay_ms_per_step": ms_step, "replay_tok_s": tok_s,
+                  "eager_ms_per_step": eager_s / n_steps * 1e3,
+                  "eager_tok_s": batch * gen_len / eager_s,
+                  "captured_calls": captured, "replays": n_steps}
+    say(f"serve graph: {n_steps} steps, tokens equal and logits equal bit "
+        f"for bit at every step; eager {graph_loop['eager_ms_per_step']:.3f} "
+        f"ms/step ({graph_loop['eager_tok_s']:.3f} tokens/s) vs replayed "
+        f"{ms_step:.3f} ms/step ({tok_s:.3f} tokens/s) [{SMI}]")
     if tuple(logits.shape) != (batch, 1, cfg.vocab_size) \
             or not bool(torch.isfinite(logits.float()).all()):
         fail(f"prefill logits {tuple(logits.shape)} not finite")
@@ -911,8 +1043,11 @@ def serve_path(args) -> tuple:
     if not torch.equal(bf16["codr_matmul"][0], logits):
         fail("the codr_matmul lane's prefill differs from the main path's")
 
-    # -- where one decode step's time goes (torch.profiler)
+    # -- where one decode step's time goes (torch.profiler), eager and
+    # replayed
     prof = _profile_step(api, params, cfg, tokens)
+    graph_loop["profile"] = _profile_replay(api, params, cfg, tokens,
+                                            gen_len)
 
     # per decode step: every projection of every layer at M = 4
     keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bytes", "ops")
@@ -931,6 +1066,12 @@ def serve_path(args) -> tuple:
         f"simt {pre['simt_ms']:.4f} ms, plain {pre['plain_ms']:.4f} ms, "
         f"torch.matmul bf16 {pre['library_ms']:.4f} ms")
     return dict(MM_KERNEL, launches=launches, launches_by_impl=by_impl,
+                launches_note="launches counts the wrapper's launches "
+                              "(prefill, each warm-up step); calls "
+                              "recorded at a capture launch nothing and "
+                              "are not in it, nor are the graphs' "
+                              "replays (the profiler counts those: "
+                              "main_path.graph.profile)",
                 max_abs_err=max_err,
                 ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=b_ms,
                 bound_by=b_by, library_ms=fwd["library_ms"],
@@ -955,7 +1096,8 @@ def serve_path(args) -> tuple:
                            "prefill_launches_by_impl": prefill_by_impl,
                            "max_abs_err_bf16": err_bf16,
                            "lane_vs_tiled_max_abs_err_f32": lane_err,
-                           "bf16_lanes": bf16_err, "profile": prof}), \
+                           "bf16_lanes": bf16_err, "profile": prof,
+                           "graph": graph_loop}), \
         qkv, compiled
 
 
@@ -1211,7 +1353,7 @@ def attention_path(args, prefill_qkv) -> dict:
 # ---------------------------------------------------------------------------
 
 def _add_phase(row: dict, name: str, phase: dict) -> None:
-    """Fold a serving phase's launches into its kernel's row."""
+    """Fold a serving phase's counted launches into its kernel's row."""
     row["launches"] += phase["launches"]
     for impl, n in phase["launches_by_impl"].items():
         row["launches_by_impl"][impl] = row["launches_by_impl"].get(
@@ -1388,11 +1530,76 @@ def _pooled_run(cb, prompts) -> list:
     return handles, outs
 
 
+# the three pools of the batcher phase: keyword arguments of the batcher
+POOLS = {"dense": {}, "bf16 paged": {"kv_page_size": 16},
+         "int8 paged": {"kv_dtype": "int8"}}
+
+
+def _batcher_run(packs, cfg, prompts, mm_ops, *, eager: bool, **kv):
+    """One pooled run (four requests, two joining mid-stream) on a
+    4-slot pool, its prefill / step times and codr_matmul launches by
+    instance recorded."""
+    from repro_torch.core.batching import ContinuousBatcher
+    cb = ContinuousBatcher(packs, cfg, n_slots=4, max_len=96,
+                           record_logits=True, eager=eager, **kv)
+    stats = {"prefill": dict.fromkeys(mm_ops.IMPLS, 0),
+             "decode": dict.fromkeys(mm_ops.IMPLS, 0),
+             "prefill_ms": [], "decode_ms": []}
+    _instrument(cb, stats, mm_ops)
+    t0 = time.perf_counter()
+    handles, outs = _pooled_run(cb, prompts)
+    wall = time.perf_counter() - t0
+    cb.stop_async()
+    # the oracles below run through the same wrappers: keep this run's
+    run = {"cb": cb, "handles": handles, "outs": outs, "wall_s": wall,
+           "prefill": dict(stats["prefill"]),
+           "decode": dict(stats["decode"]),
+           "step_ms": list(stats["decode_ms"]),
+           "prefill_ms": list(stats["prefill_ms"])}
+    run["tokens_s"] = sum(len(o) for o in outs) / wall
+    run["step_ms_median"] = _percentile(run["step_ms"], 50)
+    return run
+
+
+def _same_bits(a: dict, b: dict, what: str) -> None:
+    """Two pooled runs: the same tokens and logits bits, request by
+    request."""
+    import numpy as np
+    if a["outs"] != b["outs"]:
+        fail(f"batcher {what}: tokens {a['outs']} differ from {b['outs']}")
+    for i, (ha, hb) in enumerate(zip(a["handles"], b["handles"])):
+        if len(ha.logits) != len(hb.logits) or not all(
+                np.array_equal(x, y) for x, y in zip(ha.logits, hb.logits)):
+            fail(f"batcher {what}: request {i}'s logits differ")
+
+
+def _solo_check(run: dict, prompts, label: str) -> list:
+    """Every request of a pooled run against its solo reference, tokens
+    and logits bits; returns the references."""
+    import numpy as np
+    refs = []
+    for i, (p, h, out) in enumerate(zip(prompts, run["handles"],
+                                        run["outs"])):
+        toks, rows = run["cb"].generate_reference(
+            p, max_new_tokens=BATCH_GEN, record_logits=True)
+        refs.append((toks, np.stack(rows)))
+        if out != toks:
+            first = next(j for j, (a, b) in enumerate(zip(out, toks))
+                         if a != b)
+            fail(f"batcher ({label}): request {i} (prompt {len(p)}) differs "
+                 f"from its solo reference at token {first}: {out} vs "
+                 f"{toks}")
+        if not all(np.array_equal(a, b) for a, b in zip(h.logits, rows)):
+            diff = float(np.abs(np.stack(h.logits) - refs[-1][1]).max())
+            fail(f"batcher ({label}): request {i} logits differ from its "
+                 f"solo reference (max-abs {diff})")
+    return refs
+
+
 def batcher_phase(args, packs, cfg) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core.batching import ContinuousBatcher
     from repro_torch.kernels.codr_matmul import ops
     from repro_torch.launch.serve import run_serve_continuous
 
@@ -1401,52 +1608,87 @@ def batcher_phase(args, packs, cfg) -> dict:
                for n in BATCH_LENS]
     bits = packs.params["stack"]["b0"]["mixer"]["q_proj"][0].weight.bits
     per_forward = 7 * cfg.n_layers
-    cb = ContinuousBatcher(packs, cfg, n_slots=4, max_len=96,
-                           record_logits=True)
-    stats = {"prefill": dict.fromkeys(ops.IMPLS, 0),
-             "decode": dict.fromkeys(ops.IMPLS, 0),
-             "prefill_ms": [], "decode_ms": []}
-    _instrument(cb, stats, ops)
     say(f"batcher: {cfg.name} at full width from the serve path's packs "
         f"({bits}-bit); n_slots 4, max_len 96, prompts {BATCH_LENS}, "
-        f"max_new_tokens {BATCH_GEN}")
+        f"max_new_tokens {BATCH_GEN}; the pooled step replays a CUDA graph "
+        f"captured over the pool (eager runs beside it for the bits)")
 
-    ops.launches = 0
+    # the main path: the dense pool, captured
+    ops.launches = ops.captured = 0
     ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
-    t0 = time.perf_counter()
-    handles, outs = _pooled_run(cb, prompts)
-    wall = time.perf_counter() - t0
-    cb.stop_async()
+    main = _batcher_run(packs, cfg, prompts, ops, eager=False)
     launches, by_impl = ops.launches, dict(ops.launches_by_impl)
-    # the oracles below run through the same wrappers: keep this run's
-    pre, dec = dict(stats["prefill"]), dict(stats["decode"])
-    step_list, pre_list = list(stats["decode_ms"]), list(stats["prefill_ms"])
-    n_tok = sum(len(o) for o in outs)
-    step_ms = float(np.median(step_list))
-    say(f"batcher pooled run: {n_tok} tokens in {wall * 1e3:.3f} ms "
-        f"({n_tok / wall:.3f} tokens/s); steps_run {cb.steps_run}, "
-        f"prefills_run {cb.prefills_run}, peak_active {cb.peak_active}; "
-        f"pooled step median {step_ms:.3f} ms (min {min(step_list):.3f}, "
-        f"max {max(step_list):.3f}); prefill ms in admission order "
-        f"{[round(t, 3) for t in pre_list]}")
+    captured = ops.captured
+    cb = main["cb"]
+    pre, dec = main["prefill"], main["decode"]
+    graph = cb._graph
+    say(f"batcher pooled run (dense, captured): "
+        f"{sum(len(o) for o in main['outs'])} tokens in "
+        f"{main['wall_s'] * 1e3:.3f} ms ({main['tokens_s']:.3f} tokens/s); "
+        f"steps_run {cb.steps_run}, prefills_run {cb.prefills_run}, "
+        f"peak_active {cb.peak_active}; pooled step median "
+        f"{main['step_ms_median']:.3f} ms (min {min(main['step_ms']):.3f}, "
+        f"max {max(main['step_ms']):.3f}; the first holds the warm-up step "
+        f"and the capture); prefill ms in admission order "
+        f"{[round(t, 3) for t in main['prefill_ms']]} [{SMI}]")
     want_pre = dict.fromkeys(ops.IMPLS, 0)
     for n in BATCH_LENS:
         want_pre[ops.pick_impl(n, bits)] += per_forward
     want_dec = dict.fromkeys(ops.IMPLS, 0)
-    want_dec[ops.pick_impl(4, bits)] += per_forward * cb.steps_run
-    say(f"batcher codr_matmul launches: prefill {pre}, decode {dec}, in all "
-        f"{launches} (routing predicts {want_pre} / {want_dec})")
-    if (pre != want_pre or dec != want_dec
-            or launches != per_forward * (len(BATCH_LENS) + cb.steps_run)):
-        fail(f"batcher: codr_matmul launches {pre} / {dec} differ from the "
+    want_dec[ops.pick_impl(4, bits)] += per_forward
+    say(f"batcher codr_matmul launches counted: prefill {pre}, decode {dec} "
+        f"(the warm-up step), in all {launches}; routing predicts "
+        f"{want_pre} / {want_dec}; {captured} calls recorded at the "
+        f"capture; {graph.replays} replays, which call no wrapper (the "
+        f"profile below counts one replay's kernels)")
+    if (pre != want_pre or dec != want_dec or graph.captures != 1
+            or captured != per_forward or graph.replays != cb.steps_run
+            or launches != per_forward * (len(BATCH_LENS) + 1)):
+        fail(f"batcher: codr_matmul launches {pre} / {dec} (captures "
+             f"{graph.captures} recording {captured} calls, replays "
+             f"{graph.replays}, steps {cb.steps_run}) differ from the "
              f"routing rule's {want_pre} / {want_dec}")
     if cb.prefills_run != 6 or cb.peak_active != 4 or any(
-            len(o) != BATCH_GEN for o in outs):
+            len(o) != BATCH_GEN for o in main["outs"]):
         fail(f"batcher: prefills {cb.prefills_run}, peak_active "
-             f"{cb.peak_active}, lengths {[len(o) for o in outs]}")
+             f"{cb.peak_active}, lengths {[len(o) for o in main['outs']]}")
 
-    # where a pooled step's time goes: the model's decode_step on a
-    # 4-slot pool with per-slot positions, dense and int8-paged
+    # every pool eager and captured: the same bits; each against its solo
+    # references; bf16 paged == dense; int8 within 0.10 of the spread
+    runs = {"dense": {"captured": main,
+                      "eager": _batcher_run(packs, cfg, prompts, ops,
+                                            eager=True)}}
+    for label, kv in POOLS.items():
+        if label != "dense":
+            runs[label] = {mode: _batcher_run(packs, cfg, prompts, ops,
+                                              eager=mode == "eager", **kv)
+                           for mode in ("eager", "captured")}
+        _same_bits(runs[label]["eager"], runs[label]["captured"],
+                   f"{label}: eager vs captured")
+    lanes = {label: {mode: {"tokens_s": r["tokens_s"],
+                            "step_ms_median": r["step_ms_median"],
+                            "steps_run": r["cb"].steps_run,
+                            "step_ms": r["step_ms"]}
+                     for mode, r in pair.items()}
+             for label, pair in runs.items()}
+    for label, pair in lanes.items():
+        say(f"batcher {label} pool: eager step median "
+            f"{pair['eager']['step_ms_median']:.3f} ms, "
+            f"{pair['eager']['tokens_s']:.3f} tokens/s; captured step "
+            f"median {pair['captured']['step_ms_median']:.3f} ms, "
+            f"{pair['captured']['tokens_s']:.3f} tokens/s; eager and "
+            f"captured equal bit for bit [{SMI}]")
+    ref_rows = _solo_check(main, prompts, "dense, captured")
+    _solo_check(runs["int8 paged"]["captured"], prompts, "int8 paged, "
+                "captured")
+    _same_bits(runs["bf16 paged"]["captured"], main, "bf16 paged vs dense")
+    say("batcher: all 6 requests equal their solo references, tokens and "
+        "logits bit for bit (dense and int8 paged pools, captured); the bf16 "
+        "paged pool equals the dense pool bit for bit")
+
+    # where a pooled step's time goes: eager on a 4-slot pool with
+    # per-slot positions (dense, int8-paged), and the dense batcher's
+    # captured step replayed (its slots are all free by now)
     from repro_torch.models import cache as cache_mod
     from repro_torch.models import get_model
     api = get_model(cfg)
@@ -1464,39 +1706,20 @@ def batcher_phase(args, packs, cfg) -> dict:
         profs[label] = _profile(lambda: api.decode_step(
             packs.params, pool, tvec, pvec, cfg), "codr_matmul",
             MM_KERNEL_NAMES)
-        _say_profile(f"batcher profile, one pooled step ({label} pool)",
-                     profs[label], "codr_matmul")
+        _say_profile(f"batcher profile, one pooled step ({label} pool, "
+                     f"eager)", profs[label], "codr_matmul")
         del pool
+    profs["dense replayed"] = _profile(lambda: graph(tvec, pvec),
+                                       "codr_matmul", MM_KERNEL_NAMES)
+    _say_profile(f"batcher profile, one pooled step (dense pool, replayed) "
+                 f"[{SMI}]", profs["dense replayed"], "codr_matmul")
+    if profs["dense replayed"]["codr_matmul_launches"] != per_forward:
+        fail(f"batcher: one replay launched "
+             f"{profs['dense replayed']['codr_matmul_launches']} codr_matmul "
+             f"kernels, expected {per_forward}")
 
-    # every request against its solo reference, tokens and logits bits
-    ref_rows = []
-    for i, (p, h, out) in enumerate(zip(prompts, handles, outs)):
-        toks, rows = cb.generate_reference(p, max_new_tokens=BATCH_GEN,
-                                           record_logits=True)
-        ref_rows.append((toks, np.stack(rows)))
-        if out != toks:
-            first = next(j for j, (a, b) in enumerate(zip(out, toks))
-                         if a != b)
-            fail(f"batcher: request {i} (prompt {len(p)}) differs from its "
-                 f"solo reference at token {first}: {out} vs {toks}")
-        diff = float(np.abs(np.stack(h.logits) - ref_rows[-1][1]).max())
-        if not all(np.array_equal(a, b) for a, b in zip(h.logits, rows)):
-            fail(f"batcher: request {i} logits differ from its solo "
-                 f"reference (max-abs {diff})")
-    say("batcher: all 6 requests equal their solo references, tokens and "
-        "logits bit for bit")
-
-    # bf16 paged pool: the dense pool's tokens
-    paged = ContinuousBatcher(packs, cfg, n_slots=4, max_len=96,
-                              kv_page_size=16)
-    _, paged_outs = _pooled_run(paged, prompts)
-    paged.stop_async()
-    if paged_outs != outs:
-        fail(f"batcher: the bf16 paged pool's tokens {paged_outs} differ "
-             f"from the dense pool's {outs}")
     # int8 paged pool, teacher-forced through the dense tokens
-    int8 = ContinuousBatcher(packs, cfg, n_slots=4, max_len=96,
-                             kv_dtype="int8")
+    int8 = runs["int8 paged"]["captured"]["cb"]
     devs = []
     for i, (p, (toks, rows)) in enumerate(zip(prompts, ref_rows)):
         got = int8.replay_logits(p, toks)
@@ -1504,11 +1727,12 @@ def batcher_phase(args, packs, cfg) -> dict:
             fail(f"batcher: int8 prefill row of request {i} is not bit-exact")
         spread = float(rows.max() - rows.min()) or 1.0
         devs.append(float(np.abs(got - rows).max()) / spread)
-    kv = {"dense_bf16": cb.kv_bytes(), "paged_bf16": paged.kv_bytes(),
+    kv = {"dense_bf16": cb.kv_bytes(),
+          "paged_bf16": runs["bf16 paged"]["captured"]["cb"].kv_bytes(),
           "paged_int8": int8.kv_bytes()}
-    say(f"batcher: bf16 paged (page 16) tokens == dense tokens; int8 paged "
-        f"teacher-forced deviation per request {[round(d, 5) for d in devs]}"
-        f" of the dense logit spread (bound 0.10); kv_bytes {kv}")
+    say(f"batcher: int8 paged teacher-forced deviation per request "
+        f"{[round(d, 5) for d in devs]} of the dense logit spread (bound "
+        f"0.10); kv_bytes {kv}")
     if not max(devs) < 0.10:
         fail(f"batcher: int8 deviation {max(devs)} >= 0.10 of the spread")
 
@@ -1519,13 +1743,136 @@ def batcher_phase(args, packs, cfg) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
     if small["checked"] != small["n_requests"]:
         fail("run_serve_continuous(check=True) checked too few requests")
+    chaos = chaos_phase(packs, cfg, prompts, main)
+    for pair in runs.values():
+        for r in pair.values():
+            r["cb"]._graph = None          # free the graphs' memory
     return {"launches": launches, "launches_by_impl": by_impl,
             "prefill_launches_by_impl": pre, "decode_launches_by_impl": dec,
-            "tokens_s": n_tok / wall, "wall_ms": wall * 1e3,
-            "step_ms_median": step_ms, "step_ms": step_list,
-            "prefill_ms": pre_list, "steps_run": cb.steps_run,
-            "prefills_run": cb.prefills_run, "peak_active": cb.peak_active,
-            "kv_bytes": kv, "int8_deviation": devs, "profile": profs}
+            "captured_calls": captured, "replays": graph.replays,
+            "tokens_s": main["tokens_s"], "wall_ms": main["wall_s"] * 1e3,
+            "step_ms_median": main["step_ms_median"],
+            "step_ms": main["step_ms"], "prefill_ms": main["prefill_ms"],
+            "steps_run": cb.steps_run, "prefills_run": cb.prefills_run,
+            "peak_active": cb.peak_active, "lanes": lanes,
+            "kv_bytes": kv, "int8_deviation": devs, "profile": profs,
+            "chaos": chaos}
+
+
+def chaos_phase(packs, cfg, prompts, clean: dict) -> dict:
+    """The dense pool's captured run again under a seeded fault plan over
+    the batcher's three sites (transient errors at prefill and decode, a
+    worker crash, latency), retry and restart budgets sized to the plan:
+    every output must equal the clean run's, tokens and logits bits."""
+    from repro_torch.core.batching import ContinuousBatcher
+    from repro_torch.runtime import resilience as res
+    plan = res.FaultPlan.seeded(
+        0, (res.SITE_BATCHER_WORKER, res.SITE_BATCHER_PREFILL,
+            res.SITE_BATCHER_DECODE),
+        n_faults=12, max_call=8, latency_s=0.002)
+    cb = ContinuousBatcher(packs, cfg, n_slots=4, max_len=96,
+                           record_logits=True)
+    injector = res.FaultInjector(plan)
+    cb.configure_resilience(
+        injector=injector,
+        retry_policy=res.RetryPolicy(max_retries=max(2, len(plan)),
+                                     backoff_s=0.001),
+        restart_policy=res.RestartPolicy(max_restarts=max(1, len(plan)),
+                                         backoff_s=0.001))
+    t0 = time.perf_counter()
+    handles, outs = _pooled_run(cb, prompts)
+    wall = time.perf_counter() - t0
+    cb.stop_async()
+    run = {"handles": handles, "outs": outs}
+    _same_bits(run, clean, "chaos vs clean")
+    fired = [f"{f.site}#{f.at_call}:{f.kind}" for f in injector.fired]
+    kinds = {f.kind for f in injector.fired}
+    say(f"chaos: FaultPlan.seeded(0, batcher sites, n_faults=12, "
+        f"max_call=8): {len(injector.fired)}/{len(plan)} faults fired "
+        f"{fired}; worker crashes {cb.worker_crashes}, restarts "
+        f"{cb.worker_restarts}; {sum(len(o) for o in outs)} tokens in "
+        f"{wall * 1e3:.3f} ms; every output equals the clean run's, tokens "
+        f"and logits bit for bit")
+    if (len(injector.fired) != len(plan) or not {"error", "crash"} <= kinds
+            or cb.worker_restarts != cb.worker_crashes
+            or cb.worker_crashes < 1):
+        fail(f"chaos: fired {fired}, crashes {cb.worker_crashes}, restarts "
+             f"{cb.worker_restarts}")
+    return {"plan": plan.describe(), "fired": fired,
+            "worker_crashes": cb.worker_crashes,
+            "worker_restarts": cb.worker_restarts, "wall_ms": wall * 1e3}
+
+
+def checkpoint_phase(args, packs, cfg) -> dict:
+    """The full-width packs through ``save_packed`` into a temporary
+    directory and back with ``load_packed(mmap=True)`` onto the card:
+    the same packed bytes, and teacher-forced logits bit for bit.  Then
+    ``run_serve_continuous(check=True, chaos_seed=0, packed_ckpt=...)``
+    at its smoke size (the serving CLI's path).  The directory is
+    deleted afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import repro_torch.api as codr
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import run_serve_continuous
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen,
+                           device="cuda")
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=_build.BUILD_DIR)
+    try:
+        path = os.path.join(tmp, "qwen2.5-3b.codr")
+        t0 = time.perf_counter()
+        codr.save_packed(packs, path)
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                      for f in os.listdir(path))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = codr.load_packed(path, mmap=True)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        for (pa, a), (pb, b) in zip(packs.packed_leaves(),
+                                    loaded.packed_leaves()):
+            if pa != pb or not all(torch.equal(x, y) for x, y in zip(
+                    (a.weight.packed, a.weight.table, a.weight.scale),
+                    (b.weight.packed, b.weight.table, b.weight.scale))):
+                fail(f"checkpoint: {pa} did not round-trip byte for byte")
+        want = _teacher_forced(api, packs.params, cfg, tokens,
+                               torch.bfloat16, steps=6)
+        got = _teacher_forced(api, loaded.params, cfg, tokens,
+                              torch.bfloat16, steps=6)
+        for i, (a, b) in enumerate(zip(want, got)):
+            if not torch.equal(a, b):
+                fail(f"checkpoint: logits {i} differ after the round trip")
+        del loaded, want, got
+        torch.cuda.empty_cache()
+        say(f"checkpoint: save_packed of the full-width packs {save_s:.3f} "
+            f"s, {n_bytes} bytes on disk in {len(os.listdir(path))} files; "
+            f"load_packed(mmap=True) onto the card {boot_s:.3f} s; every "
+            f"pack byte for byte, prefill + 6 teacher-forced decode steps "
+            f"bit for bit [{SMI}]")
+        t0 = time.perf_counter()
+        small = run_serve_continuous(check=True, chaos_seed=0,
+                                     packed_ckpt=os.path.join(
+                                         tmp, "smoke.codr"), verbose=False)
+        say(f"checkpoint: run_serve_continuous(check=True, chaos_seed=0, "
+            f"packed_ckpt=...) at its smoke size: {small['checked']}/"
+            f"{small['n_requests']} checked, kv {small['kv_dtype']}, "
+            f"{small['faults_fired']} faults fired, "
+            f"{time.perf_counter() - t0:.2f} s")
+        if small["checked"] != small["n_requests"]:
+            fail("packed + chaos run_serve_continuous checked too few")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        fail(f"checkpoint: {tmp} was not deleted")
+    return {"save_s": save_s, "boot_s": boot_s, "bytes_on_disk": n_bytes}
 
 
 def cost_model_line(compiled) -> None:
@@ -1581,9 +1928,11 @@ def main() -> int:
     from repro_torch.kernels.smm_conv import ops as smm_ops
 
     # -- device ------------------------------------------------------------
+    global SMI
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
+    SMI = smi
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -1654,6 +2003,10 @@ def main() -> int:
     _add_phase(kernels[1], "batcher",
                batcher_phase(args, packs, get_config("qwen2.5-3b")))
     say(f"batcher phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels[1]["checkpoint"] = checkpoint_phase(
+        args, packs, get_config("qwen2.5-3b"))
+    say(f"checkpoint phase: {time.perf_counter() - t0:.1f} s")
     cost_model_line(cnn_model)
 
     say(json.dumps({"kernels": kernels}))

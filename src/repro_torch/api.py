@@ -10,10 +10,16 @@ lane's compile_params.
 
     cp = codr.compile_params(lm_params, codr.EncodeConfig(n_unique=16),
                              backend="codr_matmul")  # packed projections
+    codr.save_packed(cp, "ckpt/qwen.codr")         # words + manifest
+    cp = codr.load_packed("ckpt/qwen.codr")        # mapped, on the card
 
-Re-exports :mod:`repro_torch.core.api` (the pipeline) and
-:mod:`repro_torch.core.backends` (the pluggable execution backends).
+Re-exports :mod:`repro_torch.core.api` (the pipeline),
+:mod:`repro_torch.core.backends` (the pluggable execution backends) and
+:mod:`repro_torch.checkpoint.packed` (the packed artifact).
 """
+from repro_torch.checkpoint.packed import (CODR_FORMAT_VERSION,  # noqa: F401
+                                           PackedCheckpointError,
+                                           load_packed, save_packed)
 from repro_torch.core.api import (EMBED_INCLUDE,  # noqa: F401
                                   PACK_INCLUDE, CompiledModel,
                                   CompiledParams, EncodeConfig, LayerSpec,
@@ -27,4 +33,6 @@ __all__ = [
     "PACK_INCLUDE", "EMBED_INCLUDE", "CompiledParams", "compile_params",
     "Backend", "BackendCaps", "available_backends", "get_backend",
     "register",
+    "CODR_FORMAT_VERSION", "PackedCheckpointError", "save_packed",
+    "load_packed",
 ]

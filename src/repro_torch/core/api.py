@@ -332,6 +332,14 @@ class EncodeConfig:
             raise ValueError(f"unknown decode_source "
                              f"{self.decode_source!r}")
 
+    def metadata(self) -> dict:
+        """JSON-friendly dict — what a packed checkpoint's manifest
+        stores (and benchmark records stamp), as the reference's."""
+        d = dataclasses.asdict(self)
+        d["rle_params"] = (list(self.rle_params)
+                          if self.rle_params is not None else None)
+        return d
+
 
 def _plan_config(plan, name: str, default: EncodeConfig) -> EncodeConfig:
     """A layer's config from a ``{name: EncodeConfig}`` plan; layers the
@@ -414,8 +422,8 @@ class CompiledModel:
                               (default) keeps the queue unbounded.
 
         The synchronous path (``submit``/``flush``) ignores the deadline —
-        the caller owns batching cadence there.  Resilience hooks wait
-        for ROADMAP A7.
+        the caller owns batching cadence there.  Fault injection, retry
+        and restart: ``server.configure_resilience(...)``.
         """
         from repro_torch.core.serving import CodrBatchServer
         return CodrBatchServer(self, max_batch=max_batch,

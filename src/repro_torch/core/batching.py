@@ -25,10 +25,44 @@ position beyond a slot's own ``pos``, so a neighbour slot's content —
 or the stale tail a previous tenant left — contributes exactly 0.0, and
 no kernel on the path mixes rows.
 
-Where the reference jits ``prefill`` and ``decode_step``, the port
-calls them eagerly (ROADMAP A13 captures the pooled step as a CUDA
-graph).  The port's decode writes the pool in place, so the oracles
-build pools of their own and never touch the batcher's.
+Where the reference jits ``decode_step``, the port captures the pooled
+step over the batcher's pool as one CUDA graph
+(:class:`repro_torch.models.lm.CapturedDecode`) and replays it; each
+step copies the token and position vectors into the graph's static
+buffers, and the paged pool's host page table into the pool, before the
+replay.  Prefill stays eager (the reference retraces its jitted prefill
+for every prompt length); so do the CPU and ``eager=True``.  The
+capture happens on the worker thread, at the first pooled step, with
+``capture_error_mode="thread_local"``: callers may
+run CUDA work of their own on other threads meanwhile, and a sync or an
+allocation of theirs must not invalidate the capture.  The port's
+decode writes the pool in place, so the oracles build pools of their
+own, run eagerly, and never touch the batcher's.
+
+**Retry and the in-place pool.**  With a ``RetryPolicy`` configured a
+failed prefill or pooled step re-runs (``_attempt``), and a re-run step
+must give what one clean step gives although the failed attempt may
+have written some layers' rows already.  A step writes, per layer, the
+row at each slot's ``pos`` and reads rows ``<= pos``:
+
+* dense and bf16-paged pools: the write is a plain store.  Layer
+  ``l``'s row depends on the step's inputs, on rows ``< pos`` (which no
+  attempt of the step touches) and on the rows at ``pos`` of layers
+  ``< l``, which the attempt itself writes first; so, layer by layer, a
+  re-run stores the same bits again;
+* int8-paged pools: the write requantizes the row's page under the
+  grow-only scale ``s1 = max(s0, amax(row)/127)``.  Re-run from the
+  attempt's result ``(q, s1)``: the scale stays ``s1`` (the same row,
+  the same max), the new row rounds to the same byte, and every other
+  byte ``q`` (``|q| <= 127``) comes back as ``round(fl(q·s1)/s1) = q``
+  — float32 division after multiplication is off by at most a few
+  units in the 24th bit, far below 0.5 — so the page is unchanged.
+
+So a re-run writes the bits the failed attempt wrote, and reads what a
+clean step reads; ``tests/test_torch_batching.py`` fails a step after
+its first layer wrote and holds the retried run to the clean one on all
+three pools.  The graph's first replay re-runs the eager warm-up step
+in the same way.
 
 The async chassis (condition-variable worker, lazy start, stop/drain/
 restart, exception isolation) is :class:`repro_torch.core.serving
@@ -162,11 +196,16 @@ class ContinuousBatcher(AsyncWorkerLoop):
     vector.  ``join_deadline_s > 0`` lets a partially-filled pool wait
     that long after an admission for co-riders before decoding resumes.
 
+    On the card the pooled step replays a CUDA graph captured over the
+    pool (module docstring); ``eager=True`` (tests and ``chip_smoke.py``)
+    runs it eagerly instead.
+
     A failed *prefill* fails only its own request's handle; a failed
     pooled *decode step* fails the handles of exactly the slots that
-    were active in it.  The worker survives both and keeps serving: a
-    step that raised midway has written some layers' rows of its
-    slots, which admission overwrites (the prompt region, the int8
+    were active in it — after any configured retries
+    (:meth:`configure_resilience`).  The worker survives both and keeps
+    serving: a step that raised midway has written some layers' rows of
+    its slots, which admission overwrites (the prompt region, the int8
     scales of every reserved page) or decode masks (beyond ``pos``).
     """
 
@@ -177,7 +216,8 @@ class ContinuousBatcher(AsyncWorkerLoop):
                  join_deadline_s: float = 0.0, record_logits: bool = False,
                  max_pending: int | None = None,
                  kv_dtype: str = "bf16", kv_page_size: int | None = None,
-                 kv_pages: int | None = None, device=None):
+                 kv_pages: int | None = None, device=None,
+                 eager: bool = False):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if max_len < 2:
@@ -196,6 +236,7 @@ class ContinuousBatcher(AsyncWorkerLoop):
         super().__init__()
         from repro_torch.models import cache as cache_mod  # lazy: core → models
         from repro_torch.models import get_model
+        from repro_torch.models.lm import CapturedDecode
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_slots = n_slots
@@ -232,6 +273,10 @@ class ContinuousBatcher(AsyncWorkerLoop):
                 self._api.init_cache(cfg, 1, max_len, device="meta"),
                 self._api.init_cache(cfg, 2, max_len, device="meta"))
         self._pool = self._new_pool()
+        # the pooled step on the card: one graph captured over the pool
+        self._graph = (None if eager or self.device.type != "cuda" else
+                       CapturedDecode(self._params, self._pool, cfg, n_slots,
+                                      device=self.device))
         self._slots: list[_Slot | None] = [None] * n_slots  # guarded-by: _cv
         self._pending: list[_Pending] = []  # guarded-by: _cv
         self._next_id = 0                   # guarded-by: _cv
@@ -245,7 +290,7 @@ class ContinuousBatcher(AsyncWorkerLoop):
         self.requests_shed = 0              # guarded-by: _cv
         self.requests_expired = 0           # guarded-by: _cv
 
-    # -- model calls (eager; ROADMAP A13 captures the step) ------------------
+    # -- model calls ----------------------------------------------------------
     def _new_pool(self):
         return self._api.init_cache(self.cfg, self.n_slots, self.max_len,
                                     paged=self._paged, device=self.device)
@@ -256,11 +301,14 @@ class ContinuousBatcher(AsyncWorkerLoop):
         return self._api.prefill(params, {"tokens": tokens}, self.cfg)
 
     def _step_fn(self, params, pool, toks: np.ndarray, poss: np.ndarray):
-        return self._api.decode_step(
-            params, pool, torch.from_numpy(toks.astype(np.int64)).to(
-                self.device),
-            torch.from_numpy(poss.astype(np.int64)).to(self.device),
-            self.cfg)
+        tok = torch.from_numpy(toks.astype(np.int64))
+        pos = torch.from_numpy(poss.astype(np.int64))
+        if pool is self._pool and self._graph is not None:
+            # the batcher's own pool on the card: copy the vectors into
+            # the graph's static buffers and replay
+            return self._graph(tok, pos), pool
+        return self._api.decode_step(params, pool, tok.to(self.device),
+                                     pos.to(self.device), self.cfg)
 
     def _write_fn(self, pool, cache, slot: int, kv_row=None):
         if self._paged is not None:
@@ -476,15 +524,21 @@ class ContinuousBatcher(AsyncWorkerLoop):
     def _admit(self, slot_idx: int, req: _Pending,
                kv_row: np.ndarray | None = None) -> None:
         """Prefill one request and install it in its reserved slot.  A
-        prefill failure releases the slot and fails only this handle.
-        ``kv_row`` is the page-table row built while the slot was
-        reserved under ``_cv`` — passed in so the prefill never reads
-        ``self._kv_table`` outside the lock."""
-        try:
+        prefill failure releases the slot and fails only this handle,
+        after any configured retries (re-running the prefill and the
+        slot write overwrites what a failed attempt wrote).  ``kv_row``
+        is the page-table row built while the slot was reserved under
+        ``_cv`` — passed in so the prefill never reads ``self._kv_table``
+        outside the lock."""
+
+        def _attempt():
             self._fire("batcher.prefill")
             logits, cache = self._prefill_fn(self._params, req.prompt)
             self._write_fn(self._pool, cache, slot_idx, kv_row)
-            row = _host_rows(logits).reshape(-1)
+            return _host_rows(logits).reshape(-1)
+
+        try:
+            row = self._guarded(_attempt)
         except Exception as e:      # noqa: BLE001 — lands on the handle
             with self._cv:
                 self._slots[slot_idx] = None
@@ -534,15 +588,21 @@ class ContinuousBatcher(AsyncWorkerLoop):
         for i, s in active:
             toks[i] = s.last_tok
             poss[i] = s.pos
-        try:
-            if kv_table is not None:
-                # push the authoritative host page table into the pool:
-                # retired slots now point at scratch, fresh admits at
-                # their reserved pages
-                self._cache_mod.set_tables(self._pool, kv_table)
+
+        def _attempt():
+            # a re-run recomputes the step over the rows the failed
+            # attempt wrote: the same bits (module docstring)
             self._fire("batcher.decode")
             logits, _ = self._step_fn(self._params, self._pool, toks, poss)
-            rows = _host_rows(logits)
+            return _host_rows(logits)
+
+        try:
+            if kv_table is not None:
+                # push the authoritative host page table into the pool
+                # (in place, outside the graph): retired slots now point
+                # at scratch, fresh admits at their reserved pages
+                self._cache_mod.set_tables(self._pool, kv_table)
+            rows = self._guarded(_attempt)
         except Exception as e:      # noqa: BLE001 — exactly this batch
             with self._cv:
                 for i, s in active:

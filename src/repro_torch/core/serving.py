@@ -17,8 +17,10 @@ shared with :class:`repro_torch.core.batching.ContinuousBatcher`, and
 :class:`CodrBatchServer`, the bucketed sync/async batch server over a
 compiled CNN (``CompiledModel.serve``).  Its async path stages each
 batch into pinned host memory and copies it to the card on a side
-stream while the previous batch computes.  Fault injection, retry and
-worker restart wait for ROADMAP A7.
+stream while the previous batch computes.  Fault injection, retry with
+quarantine and supervised worker restart come from
+:mod:`repro_torch.runtime.resilience`; with none configured every path
+is the unconfigured one.
 """
 from __future__ import annotations
 
@@ -34,8 +36,10 @@ from repro_torch.core import rle, ucr
 from repro_torch.core.baselines import scnn_compress_bits, ucnn_compress_bits
 from repro_torch.core.codr_linear import choose_bits, quantize_restrict
 from repro_torch.core.tree import map_with_path
-from repro_torch.runtime.resilience import (DeadlineExceeded, RejectedError,
-                                            WorkerCrashed)
+from repro_torch.runtime.resilience import (DeadlineExceeded,
+                                            QuarantinedError, RejectedError,
+                                            WorkerCrashed, refuse_supervisor,
+                                            retry_call)
 
 __all__ = ["MIN_COMPRESS_SIZE", "TensorReport", "compress_tensor",
            "account_tensor", "codr_compress_params", "codr_report",
@@ -242,12 +246,16 @@ class AsyncWorkerLoop:
 
     **Supervision**: the worker thread runs :meth:`_loop` under
     :meth:`_run_worker`, which catches *any* escape — including
-    ``BaseException`` crashes — and fails every live future/handle with
+    ``BaseException`` crashes — and, when a ``RestartPolicy`` is
+    configured via :meth:`configure_resilience`, backs off and re-enters
+    the loop on the same thread, so every pending request survives the
+    crash.  Past the restart budget (or with no policy) the crash fails
+    every live future/handle with
     :class:`~repro_torch.runtime.resilience.WorkerCrashed`, so
     ``result()`` never hangs on a dead loop; the next submit starts a
-    fresh worker.  Restarting in place under a ``RestartPolicy``, fault
-    injection and retry wait for ROADMAP A7: :meth:`configure_resilience`
-    refuses them, and :meth:`_fire` marks the injection sites.
+    fresh worker.  ``configure_resilience`` also installs the fault
+    injector (:meth:`_fire` is the site hook) and the retry policy the
+    subclasses dispatch under.
     """
 
     _thread_name = "async-worker"
@@ -256,7 +264,10 @@ class AsyncWorkerLoop:
         self._cv = threading.Condition()
         self._worker: threading.Thread | None = None   # guarded-by: _cv
         self._stopping = False                         # guarded-by: _cv
-        self._injector = None      # a FaultInjector once ROADMAP A7 lands
+        # -- resilience (all optional; None ⇒ the unconfigured path)
+        self._injector = None           # runtime.resilience.FaultInjector
+        self._retry_policy = None       # runtime.resilience.RetryPolicy
+        self._restart_policy = None     # runtime.resilience.RestartPolicy
         self.worker_crashes = 0                        # guarded-by: _cv
         self.worker_restarts = 0                       # guarded-by: _cv
 
@@ -270,25 +281,23 @@ class AsyncWorkerLoop:
     def _fail_live_locked(self, exc: BaseException) -> None:
         """Under ``self._cv``: deliver ``exc`` to every live future /
         handle (pending *and* in-flight) so no caller hangs after the
-        worker died.  Subclasses with queues must override."""
+        worker died for good.  Subclasses with queues must override."""
 
     # -- resilience ---------------------------------------------------------
     def configure_resilience(self, *, injector=None, retry_policy=None,
                              restart_policy=None, supervisor=None):
-        """The reference installs a fault injector, a retry policy, a
-        restart policy and a serving supervisor here.  None of them is
-        ported yet (ROADMAP A7), so any of them raises
-        ``NotImplementedError`` rather than being dropped unseen; with
-        all four ``None`` this returns ``self``, as the reference does."""
-        given = [name for name, v in (
-            ("injector", injector), ("retry_policy", retry_policy),
-            ("restart_policy", restart_policy), ("supervisor", supervisor))
-            if v is not None]
-        if given:
-            raise NotImplementedError(
-                f"configure_resilience({', '.join(given)}=...): fault "
-                f"injection, retry, restart and the serving supervisor are "
-                f"not ported yet (ROADMAP A7)")
+        """Install resilience hooks (all optional, from
+        :mod:`repro_torch.runtime.resilience`): a ``FaultInjector``
+        firing at this loop's sites, a ``RetryPolicy`` for transient
+        dispatch failures (exhaustion ⇒ quarantine) and a
+        ``RestartPolicy`` for worker crashes.  A ``supervisor`` raises
+        ``NotImplementedError`` naming ROADMAP A10 (it degrades a
+        sharded lane the port does not have).  Returns ``self``."""
+        refuse_supervisor(supervisor)
+        with self._cv:
+            self._injector = injector
+            self._retry_policy = retry_policy
+            self._restart_policy = restart_policy
         return self
 
     def _fire(self, site: str) -> None:
@@ -298,25 +307,46 @@ class AsyncWorkerLoop:
         if inj is not None:
             inj.fire(site)
 
+    def _guarded(self, fn):
+        """Run one dispatch under the retry policy; exactly ``fn()``
+        when none is configured."""
+        return retry_call(fn, policy=self._retry_policy)
+
     def _run_worker(self) -> None:
         """Thread target: supervise :meth:`_loop`.  A normal return ends
         the thread; any escape (an ``Exception`` or a ``BaseException``
-        crash) fails all live work with ``WorkerCrashed`` (chaining the
-        cause) and clears ``self._worker`` so a later submit can lazily
-        start a fresh worker."""
-        try:
-            self._loop()
-        except BaseException as e:  # noqa: BLE001 — supervision net
-            with self._cv:
-                self.worker_crashes += 1
-                err = WorkerCrashed(f"{self._thread_name} worker died: {e!r}")
-                err.__cause__ = e
-                # clear the thread slot BEFORE failing waiters: a woken
-                # submitter may resubmit at once and must be able to
-                # start a fresh worker
-                self._worker = None
-                self._fail_live_locked(err)
-                self._cv.notify_all()
+        crash) consumes one restart from the ``RestartPolicy`` budget and
+        re-enters the loop after backoff, pending work intact.  Budget
+        exhausted (or no policy) ⇒ fail all live work with
+        ``WorkerCrashed`` (chaining the cause) and clear ``self._worker``
+        so a later submit can lazily start a fresh worker."""
+        while True:
+            try:
+                self._loop()
+                return
+            except BaseException as e:  # noqa: BLE001 — supervision net
+                with self._cv:
+                    self.worker_crashes += 1
+                    pol = self._restart_policy
+                    if (pol is not None and not self._stopping
+                            and self.worker_restarts < pol.max_restarts):
+                        n = self.worker_restarts
+                        self.worker_restarts += 1
+                    else:
+                        err = WorkerCrashed(
+                            f"{self._thread_name} worker died: {e!r}"
+                            + ("" if pol is None else
+                               f" (restart budget {pol.max_restarts} "
+                               "exhausted)"))
+                        err.__cause__ = e
+                        # clear the thread slot BEFORE failing waiters: a
+                        # woken submitter may resubmit at once and must
+                        # be able to start a fresh worker
+                        self._worker = None
+                        self._fail_live_locked(err)
+                        self._cv.notify_all()
+                        return
+                time.sleep(pol.delay(n))
 
     # -- lifecycle ----------------------------------------------------------
     def start_async(self):
@@ -470,6 +500,8 @@ class CodrBatchServer(AsyncWorkerLoop):
         self.bucket_counts: dict[int, int] = {}   # guarded-by: _cv
         self.requests_shed = 0              # guarded-by: _cv
         self.requests_expired = 0           # guarded-by: _cv
+        self.requests_quarantined = 0       # guarded-by: _cv
+        self.quarantined: list[dict] = []   # guarded-by: _cv
         # -- async state ------------------------------------------------
         self._async_queue: list[_AsyncReq] = []   # guarded-by: _cv
         self._oldest_t: float | None = None       # guarded-by: _cv
@@ -561,8 +593,15 @@ class CodrBatchServer(AsyncWorkerLoop):
         to the queue head (submission order preserved) so the next
         ``flush`` serves them.  The failed chunk itself is NOT
         requeued: a poison request would otherwise kill every
-        subsequent flush.  Requests whose ``deadline_s`` already passed
-        are dropped up front (``None`` output row, ``requests_expired``).
+        subsequent flush.
+
+        With a :class:`~repro_torch.runtime.resilience.RetryPolicy`
+        configured, *transient* chunk failures retry with backoff first;
+        only retry-budget exhaustion (the chunk is then recorded in
+        ``self.quarantined``) or a non-transient error reaches the
+        ``FlushDispatchError`` path.  Requests whose ``deadline_s``
+        already passed are dropped up front (``None`` output row,
+        ``requests_expired``).
         """
         with self._cv:
             queue, self._queue = self._queue, []
@@ -578,9 +617,10 @@ class CodrBatchServer(AsyncWorkerLoop):
         chunks = list(self._chunks([queue[p][0] for p in live_pos]))
         for ci, (chunk_pos, batch, n_real, bucket) in enumerate(chunks):
             try:
-                y = self._dispatch(batch)
+                y = self._guarded_dispatch(batch)
             except Exception as e:          # noqa: BLE001 — rewrapped
                 qpos = [live_pos[p] for p in chunk_pos]
+                self._note_quarantine(e, n_real)
                 tail = sorted(live_pos[p] for c in chunks[ci + 1:]
                               for p in c[0])
                 with self._cv:
@@ -596,11 +636,32 @@ class CodrBatchServer(AsyncWorkerLoop):
             self._count(n_real, bucket)
         return outs
 
-    def _dispatch(self, batch: np.ndarray) -> np.ndarray:
-        """One synchronous dispatch of a host chunk: fire the injection
-        site, run the model, block to host."""
-        self._fire("server.dispatch")
-        return _to_host(self.model.run(batch))
+    def _guarded_dispatch(self, batch: np.ndarray) -> np.ndarray:
+        """Dispatch one host chunk under the retry policy: fire the
+        injection site, run the model, block to host.  Transient
+        failures re-execute with backoff (a dispatch writes nothing but
+        its own output, so a re-run is a first run); unconfigured this
+        is exactly one attempt."""
+
+        def _attempt():
+            self._fire("server.dispatch")
+            return _to_host(self.model.run(batch))
+
+        return self._guarded(_attempt)
+
+    def _note_quarantine(self, exc: BaseException, n_real: int) -> None:
+        """Record a consumed-not-requeued chunk.  Only exhaustion of a
+        configured retry budget counts as quarantine; a plain dispatch
+        error without a policy is not recorded."""
+        if not isinstance(exc, QuarantinedError):
+            return
+        with self._cv:
+            self.requests_quarantined += n_real
+            self.quarantined.append({
+                "n_requests": n_real, "attempts": exc.attempts,
+                "error": repr(exc.__cause__ or exc),
+                "t": time.monotonic()})
+            del self.quarantined[:-64]      # bounded log
 
     def serve(self, samples) -> list[np.ndarray]:
         """Convenience: submit + flush a list of single samples."""
@@ -723,7 +784,6 @@ class CodrBatchServer(AsyncWorkerLoop):
         compute is done."""
         if isinstance(staged, Exception):
             raise staged
-        self._fire("server.dispatch")
         if isinstance(staged, np.ndarray):
             return self.model.run(staged)
         x, ready, _host = staged
@@ -736,7 +796,10 @@ class CodrBatchServer(AsyncWorkerLoop):
         """Run one drained queue: stage batch i+1's host→device transfer
         while batch i computes (double buffering), resolve each batch's
         futures as its results arrive, and propagate a failed staging or
-        dispatch into exactly that batch's futures."""
+        dispatch into exactly that batch's futures.  With resilience
+        configured the chunks go through :meth:`_guarded_dispatch`
+        instead (:meth:`_dispatch_chunks_resilient`); the unconfigured
+        path is the staged one."""
         # drop requests cancelled while queued BEFORE batching — they
         # must neither burn compute nor inflate requests_served (this
         # also moves every surviving future to RUNNING, so a cancel
@@ -761,6 +824,9 @@ class CodrBatchServer(AsyncWorkerLoop):
             return
         futs = [r.future for r in live]
         chunks = list(self._chunks([r.sample for r in live]))
+        if self._retry_policy is not None or self._injector is not None:
+            self._dispatch_chunks_resilient(chunks, futs)
+            return
         staged: list = [None] * len(chunks)
         staged[0] = self._try_stage(chunks[0][1])
         for i, (chunk_pos, _, n_real, bucket) in enumerate(chunks):
@@ -787,3 +853,22 @@ class CodrBatchServer(AsyncWorkerLoop):
                     futs[p].set_exception(err)
                 else:
                     futs[p].set_result(y[j])
+
+    def _dispatch_chunks_resilient(self, chunks, futs) -> None:
+        """Async dispatch under the retry policy: each chunk runs through
+        :meth:`_guarded_dispatch` (fire site → run → block), retries
+        transients, quarantines on budget exhaustion (that chunk's
+        futures get the ``QuarantinedError``; later chunks are served).
+        No staging overlap here — a retried chunk owns its dispatch end
+        to end."""
+        for chunk_pos, batch, n_real, bucket in chunks:
+            try:
+                y = self._guarded_dispatch(batch)
+            except Exception as e:      # noqa: BLE001 — lands on futures
+                self._note_quarantine(e, n_real)
+                for p in chunk_pos:
+                    futs[p].set_exception(e)
+                continue
+            self._count(n_real, bucket)
+            for j, p in enumerate(chunk_pos):
+                futs[p].set_result(y[j])

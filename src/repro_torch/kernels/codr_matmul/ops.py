@@ -45,13 +45,18 @@ Dispatch: a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.codr_matmul.ref.codr_matmul_ref`); a CUDA
 tensor launches a kernel or raises.  :data:`launches` counts kernel
 launches, and only those (one per call); :data:`launches_by_impl` splits
-the same count by instance.
+the same count by instance.  A call made while its stream is capturing a
+CUDA graph launches nothing: it records a kernel into the graph and
+counts in :data:`captured` instead.  A replay of the graph launches that
+kernel with no call of the wrapper, so no counter here sees it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import pathlib
+import threading
 
 import torch
 
@@ -61,7 +66,8 @@ from repro_torch.kernels.codr_matmul.ref import codr_matmul_ref
 
 __all__ = ["KERNEL_CAPS", "IMPLS", "SOURCES", "SPLITK_MAX_M",
            "BITS16_SPLITK_MAX_M", "SM90_BITS", "launches", "launches_by_impl", "pick_impl", "splitk_plan",
-           "sm90_plan", "load_kernel", "codr_matmul_cuda", "codr_matmul"]
+           "sm90_plan", "load_kernel", "captured", "scratch_pool",
+           "codr_matmul_cuda", "codr_matmul"]
 
 # Capability facts consumed by the backend registry
 # (repro_torch.core.backends.CodrMatmulBackend) — this kernel only has a
@@ -103,6 +109,7 @@ _SM90_BM, _SM90_BN, _SM90_BK = 128, 128, 64
 
 launches = 0          # kernel launches since the count was last set to 0
 launches_by_impl = dict.fromkeys(IMPLS, 0)   # the same count, by instance
+captured = 0          # calls recorded into a CUDA graph, which launch nothing
 
 
 def pick_impl(m: int, bits: int) -> str:
@@ -197,21 +204,42 @@ def load_kernel(impl: str):
 # a counter per output tile, made zero once and set back to zero by the
 # last block of each tile, then the slices' f32 partials.  Calls on one
 # stream run in order, so they share it; no call clears it, none syncs
-# with the host, and its address stays put from call to call.
+# with the host, and its address stays put from call to call.  Inside
+# scratch_pool(pool) a thread's calls keep their buffers in ``pool``.
 _scratch: dict[tuple, tuple[torch.Tensor, int]] = {}
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def scratch_pool(pool: dict):
+    """Keep the split-K scratch of the calls this thread makes inside the
+    block in ``pool``, a dict the caller owns, not in the module's
+    per-stream buffers.  A CUDA graph reads and writes the scratch its
+    capture used at every replay, so a graph's owner warms up and
+    captures inside a pool of its own and holds it: no other graph and
+    no eager call shares those counters and partials, whatever stream
+    each runs on."""
+    saved = getattr(_local, "pool", None)
+    _local.pool = pool
+    try:
+        yield pool
+    finally:
+        _local.pool = saved
 
 
 def _split_scratch(device: torch.device, stream: int, tiles: int,
                    partials: int) -> tuple:
     """(counters, partials) views of the stream's scratch, grown (and
     zeroed) when a call needs more than it holds."""
+    pool = getattr(_local, "pool", None)
+    pool = _scratch if pool is None else pool
     key = (device.index, stream)
-    buf, n_counters = _scratch.get(key, (None, 0))
+    buf, n_counters = pool.get(key, (None, 0))
     if buf is None or n_counters < tiles or buf.numel() - n_counters < partials:
         n_counters = max(n_counters, _cdiv(tiles, 64) * 64, 1024)
         room = max(partials, 0 if buf is None else buf.numel() - n_counters)
         buf = torch.zeros(n_counters + room, dtype=torch.int32, device=device)
-        _scratch[key] = (buf, n_counters)
+        pool[key] = (buf, n_counters)
     return (buf[:n_counters],
             buf[n_counters:n_counters + partials].view(torch.float32))
 
@@ -248,7 +276,7 @@ def codr_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
     or bfloat16, ``scale`` one float32 → (M, n) in ``x``'s dtype, on the
     instance :func:`pick_impl` names, or ``impl``.  Raises on anything
     the instance does not take, and when the launch is refused."""
-    global launches
+    global launches, captured
     if bits not in BITS:
         raise ValueError(f"bits must be one of {BITS}, got {bits}")
     _check("x", x, _DTYPES, 2, x.device)
@@ -300,8 +328,13 @@ def codr_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"codr_matmul ({impl}) launch failed: CUDA error "
                            f"{err} ({what(err).decode()})")
-    launches += 1
-    launches_by_impl[impl] += 1
+    with torch.cuda.device(x.device):
+        capturing = torch.cuda.is_current_stream_capturing()
+    if capturing:
+        captured += 1
+    else:
+        launches += 1
+        launches_by_impl[impl] += 1
     return out
 
 

@@ -7,11 +7,23 @@ representation (:func:`repro_torch.api.compile_params`), so every
 projection matmul resolves through the backend registry into the
 ``codr_matmul`` CUDA kernel (its plain version on the CPU) and the
 reported weight bytes are measured on the stored packs.  Runs on the
-card unless the caller passes ``device="cpu"``.  The command line waits
-for ROADMAP A12, chaos mode for A7 and packed checkpoints for A8.
+card unless the caller passes ``device="cpu"``; there the decode step is
+captured once as a CUDA graph and replayed (prefill stays eager).
+
+``packed_ckpt=PATH`` (``--packed-ckpt``) boots from a packed checkpoint
+artifact (:func:`repro_torch.api.save_packed`): if PATH exists it is
+mapped (no re-encode); otherwise the run compiles once, saves the
+artifact and reloads it.  Packed boots default to the int8 paged KV
+cache.  ``chaos_seed`` (``--chaos SEED``) arms a seeded fault plan over
+the batcher's sites with retry and restart budgets sized to it.
+
+    python -m repro_torch.launch.serve --continuous --chaos 0 \
+        --packed-ckpt PATH --check
 """
 from __future__ import annotations
 
+import argparse
+import os
 import time
 
 import numpy as np
@@ -24,7 +36,7 @@ from repro_torch.core.serving import codr_serving_stats
 from repro_torch.core.tree import leaves_with_path
 from repro_torch.models import get_model
 
-__all__ = ["greedy_decode", "run_serve", "run_serve_continuous"]
+__all__ = ["greedy_decode", "run_serve", "run_serve_continuous", "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -32,19 +44,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def greedy_decode(api, params, tokens: torch.Tensor, cfg, gen_len: int):
+def greedy_decode(api, params, tokens: torch.Tensor, cfg, gen_len: int, *,
+                  eager: bool = False):
     """Greedy decode over a fresh full-length cache: replay the prompt
     ``tokens`` (B, prompt_len) through ``decode_step``, then generate
     ``gen_len`` tokens (cache shapes stay fixed).  Returns ``(gen (B,
-    gen_len) int64 on the tokens' device, cache, decode_step calls)``."""
+    gen_len) int64 on the tokens' device, cache, decode_step calls)``.
+
+    On the card the step is captured once as a CUDA graph
+    (:class:`repro_torch.models.lm.CapturedDecode`) and replayed, the
+    position filled into its static buffer each step; the CPU, and
+    ``eager=True`` (tests and ``chip_smoke.py``), call ``decode_step``."""
+    from repro_torch.models.lm import CapturedDecode
     batch, prompt_len = tokens.shape
     total = prompt_len + gen_len
     cache = api.init_cache(cfg, batch, total, device=tokens.device)
+    step = (None if eager or tokens.device.type != "cuda" else
+            CapturedDecode(params, cache, cfg, batch, device=tokens.device))
     out_tokens: list[torch.Tensor] = []
     tok = tokens[:, 0]
     n_steps = 0
     for i in range(total - 1):
-        logits, cache = api.decode_step(params, cache, tok, i, cfg)
+        if step is None:
+            logits, cache = api.decode_step(params, cache, tok, i, cfg)
+        else:
+            logits = step(tok, i)
         n_steps += 1
         if i + 1 < prompt_len:
             tok = tokens[:, i + 1]
@@ -63,7 +87,8 @@ def run_serve(*, arch: str = "qwen2.5-3b", batch: int = 4,
     """One serving run: prefill + greedy decode on the smoke variant of
     ``arch``, params and prompt drawn from a generator seeded 0.  Returns
     the reference's metrics dict (timings, generated tokens, and — under
-    ``use_codr`` — the measured packed-representation bytes)."""
+    ``use_codr`` — the measured packed-representation bytes).  The decode
+    loop replays a captured step on the card (:func:`greedy_decode`)."""
     dev = resolve_device(device)
     cfg = smoke_variant(get_config(arch))
     api = get_model(cfg)
@@ -141,6 +166,34 @@ def run_serve(*, arch: str = "qwen2.5-3b", batch: int = 4,
     return result
 
 
+def _boot_packed(api, cfg, gen, path: str, *, codr_unique: int,
+                 codr_backend: str, device, verbose: bool):
+    """``(CompiledParams, boot seconds)`` from the artifact at ``path``,
+    compiling and saving it first when it does not exist."""
+    if not os.path.exists(path):
+        # self-contained: compile once and persist the artifact, then
+        # boot from it like any later run would
+        params = api.init_params(gen, cfg)
+        t0 = time.monotonic()
+        cp = codr.compile_params(
+            params, codr.EncodeConfig(n_unique=codr_unique),
+            backend=codr_backend, device=device)
+        codr.save_packed(cp, path)
+        if verbose:
+            print(f"packed checkpoint written to {path} "
+                  f"({time.monotonic() - t0:.2f}s compile+save)")
+    t0 = time.monotonic()
+    compiled = codr.load_packed(path, device=device)
+    _sync(device)
+    boot_s = time.monotonic() - t0
+    if verbose:
+        print(f"booted from packed checkpoint {path} in "
+              f"{boot_s * 1e3:.1f} ms (format v{codr.CODR_FORMAT_VERSION}, "
+              f"mmap)")
+        print(compiled.summary())
+    return compiled, boot_s
+
+
 def run_serve_continuous(*, arch: str = "qwen2.5-3b", n_requests: int = 4,
                          n_slots: int = 4, prompt_len: int = 8,
                          gen_len: int = 8, max_len: int = 64,
@@ -163,35 +216,47 @@ def run_serve_continuous(*, arch: str = "qwen2.5-3b", n_requests: int = 4,
     bound the per-step logit deviation (0.10 of the dense logit
     spread).  Returns the reference's metrics dict.
 
-    ``chaos_seed`` (fault injection) waits for ROADMAP A7 and
-    ``packed_ckpt`` (packed checkpoints) for A8; both raise."""
-    from repro_torch.core.batching import ContinuousBatcher
+    ``packed_ckpt`` boots the weights from a packed checkpoint artifact
+    (saving one first if the path does not exist) and — unless
+    overridden — turns on the int8 paged KV cache.
 
-    if chaos_seed is not None:
-        raise NotImplementedError("chaos_seed: fault injection is not "
-                                  "ported yet (ROADMAP A7)")
-    if packed_ckpt is not None:
-        raise NotImplementedError("packed_ckpt: packed checkpoints are not "
-                                  "ported yet (ROADMAP A8)")
+    ``chaos_seed`` arms a deterministic fault plan
+    (:meth:`repro_torch.runtime.resilience.FaultPlan.seeded` over the
+    batcher's worker/prefill/decode sites: transient dispatch errors,
+    injected latency, worker crashes) with retry and restart budgets
+    sized to the plan; every request must still finish with the bits
+    of a clean run, which ``check=True`` asserts."""
+    from repro_torch.core.batching import ContinuousBatcher
+    from repro_torch.runtime import resilience as res
+
     dev = resolve_device(device)
     cfg = smoke_variant(get_config(arch))
     api = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     if kv_dtype is None:
-        kv_dtype = "bf16"
+        # packed boots default to the int8 paged cache; plain runs keep
+        # the dense bf16 pool
+        kv_dtype = "int8" if packed_ckpt is not None else "bf16"
     if kv_dtype == "int8" and kv_page_size is None:
         kv_page_size = 4 if max_len <= 128 else 16
 
-    params = api.init_params(gen, cfg)
     compiled = None
-    if use_codr:
-        compiled = codr.compile_params(
-            params, codr.EncodeConfig(n_unique=codr_unique),
-            backend=codr_backend, device=dev)
+    boot_s = None
+    if packed_ckpt is not None:
+        compiled, boot_s = _boot_packed(
+            api, cfg, gen, packed_ckpt, codr_unique=codr_unique,
+            codr_backend=codr_backend, device=dev, verbose=verbose)
         params = compiled.params
-        if verbose:
-            print(compiled.summary())
+    else:
+        params = api.init_params(gen, cfg)
+        if use_codr:
+            compiled = codr.compile_params(
+                params, codr.EncodeConfig(n_unique=codr_unique),
+                backend=codr_backend, device=dev)
+            params = compiled.params
+            if verbose:
+                print(compiled.summary())
 
     rng = np.random.default_rng(seed)
     # mixed prompt lengths around prompt_len: the join-on-prefill path
@@ -204,6 +269,25 @@ def run_serve_continuous(*, arch: str = "qwen2.5-3b", n_requests: int = 4,
     batcher = ContinuousBatcher(params, cfg, n_slots=n_slots,
                                 max_len=max_len, kv_dtype=kv_dtype,
                                 kv_page_size=kv_page_size, device=dev)
+    injector = None
+    if chaos_seed is not None:
+        plan = res.FaultPlan.seeded(
+            chaos_seed,
+            (res.SITE_BATCHER_WORKER, res.SITE_BATCHER_PREFILL,
+             res.SITE_BATCHER_DECODE),
+            n_faults=4, max_call=max(4, n_requests * gen_len // 2),
+            latency_s=0.002)
+        injector = res.FaultInjector(plan)
+        # budgets sized to the plan: every injected fault is survivable,
+        # so the run must finish with bit-identical outputs
+        batcher.configure_resilience(
+            injector=injector,
+            retry_policy=res.RetryPolicy(max_retries=max(2, len(plan)),
+                                         backoff_s=0.001),
+            restart_policy=res.RestartPolicy(
+                max_restarts=max(1, len(plan)), backoff_s=0.001))
+        if verbose:
+            print(f"chaos seed {chaos_seed}: {plan.describe()}")
     t0 = time.monotonic()
     handles = [batcher.submit(p, max_new_tokens=gen_len) for p in prompts]
     streamed = [[tok for tok in h] for h in handles]
@@ -224,12 +308,17 @@ def run_serve_continuous(*, arch: str = "qwen2.5-3b", n_requests: int = 4,
               + (f" paged (page_size={kv_page_size})"
                  if kv_page_size is not None else " dense")
               + f", {kv_bytes/1e3:.1f} kB resident")
+        if injector is not None:
+            print(f"chaos: {len(injector.fired)}/{len(injector.plan)} "
+                  f"scheduled faults fired "
+                  f"({[f'{f.site}#{f.at_call}:{f.kind}' for f in injector.fired]}); "
+                  f"worker crashes={batcher.worker_crashes} "
+                  f"restarts={batcher.worker_restarts}")
         if compiled is not None:
             stats = codr_serving_stats(cfg, reports=compiled.reports)
             print(f"weight HBM ({stats['source']} on this model's "
                   f"tensors): {compiled.hbm_bytes()/1e6:.3f} MB packed, "
                   f"{stats['pack_bits_per_weight']:.2f} pack bits/weight")
-
     matched = None
     check_dev = None
     if check:
@@ -283,9 +372,85 @@ def run_serve_continuous(*, arch: str = "qwen2.5-3b", n_requests: int = 4,
         "prefills_run": batcher.prefills_run,
         "peak_active": batcher.peak_active, "checked": matched,
         "backend": compiled.backend if compiled is not None else None,
-        "chaos_seed": chaos_seed, "faults_fired": None,
+        "chaos_seed": chaos_seed,
+        "faults_fired": (len(injector.fired) if injector is not None
+                         else None),
         "worker_restarts": batcher.worker_restarts,
         "kv_dtype": kv_dtype, "kv_page_size": kv_page_size,
-        "kv_bytes": kv_bytes, "boot_s": None,
+        "kv_bytes": kv_bytes, "boot_s": boot_s,
         "packed_ckpt": packed_ckpt, "check_dev": check_dev,
     }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="Serve the smoke variant of a model from CoDR-packed "
+                    "weights on the card (the reference's serve CLI).")
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--codr", action="store_true",
+                    help="serve from the packed CoDR weight representation")
+    ap.add_argument("--codr-unique", type=int, default=16,
+                    help="unique-weight budget per tensor (paper Fig. 6 U)")
+    ap.add_argument("--codr-backend", default="codr_matmul",
+                    help="packed-matmul backend: codr_matmul (fused "
+                         "decode+matmul kernel) or tiled (decode-then-"
+                         "matmul reference lane)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching mode: stream --requests "
+                         "concurrent mixed-length prompts through a "
+                         "slot-pooled decode loop")
+    ap.add_argument("--requests", type=int, default=4,
+                    help="concurrent requests (--continuous)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="KV-cache pool slots (--continuous)")
+    ap.add_argument("--check", action="store_true",
+                    help="assert streamed outputs are bit-identical to "
+                         "the sequential reference (--continuous)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="inject a deterministic seeded fault plan "
+                         "(dispatch errors, latency, worker crashes) "
+                         "into the continuous-batching run; combine "
+                         "with --check to assert outputs survive "
+                         "bit-identically (--continuous)")
+    ap.add_argument("--packed-ckpt", nargs="?", const="", default=None,
+                    metavar="PATH",
+                    help="boot from a packed checkpoint artifact "
+                         "(codr.save_packed); writes one first if PATH "
+                         "is missing.  Without PATH a per-arch default "
+                         "in the working directory is used.  Implies "
+                         "--kv-dtype int8 unless overridden "
+                         "(--continuous)")
+    ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default=None,
+                    help="KV cache storage: bf16 (bit-identical; dense "
+                         "unless --kv-page-size) or int8 (quantized "
+                         "paged) (--continuous)")
+    ap.add_argument("--kv-page-size", type=int, default=None,
+                    help="tokens per KV page; enables the paged pool "
+                         "for bf16 too (--continuous)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+    packed_ckpt = args.packed_ckpt
+    if packed_ckpt == "":
+        packed_ckpt = f"codr_packed_{args.arch.replace('/', '_')}.codr"
+    if args.continuous:
+        run_serve_continuous(
+            arch=args.arch, n_requests=args.requests, n_slots=args.slots,
+            prompt_len=args.prompt_len, gen_len=args.gen_len,
+            use_codr=args.codr, codr_unique=args.codr_unique,
+            codr_backend=args.codr_backend, check=args.check,
+            chaos_seed=args.chaos, kv_dtype=args.kv_dtype,
+            kv_page_size=args.kv_page_size, packed_ckpt=packed_ckpt,
+            device=args.device)
+    else:
+        run_serve(arch=args.arch, batch=args.batch,
+                  prompt_len=args.prompt_len, gen_len=args.gen_len,
+                  use_codr=args.codr, codr_unique=args.codr_unique,
+                  codr_backend=args.codr_backend, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

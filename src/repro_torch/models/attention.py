@@ -110,14 +110,17 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor, pos
     """Write the single-token block ``new`` (B, 1, ...) into the (B, S,
     ...) ``cache`` at ``pos`` (scalar or per-row ``(B,)``).  The port
     writes in place (the reference returns a new array) and returns
-    ``cache``."""
+    ``cache``.  A Python int slices (eager callers); a tensor position,
+    0-dim or ``(B,)``, scatters per row without leaving the device, so
+    a captured step can take it from a static buffer.  Both write the
+    same bits."""
     new = new.to(cache.dtype)
-    if isinstance(pos, int) or torch.as_tensor(pos).dim() == 0:
-        p = int(pos)
-        cache[:, p:p + 1] = new
-    else:
-        rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, torch.as_tensor(pos, device=cache.device)] = new[:, 0]
+    if isinstance(pos, int):
+        cache[:, pos:pos + 1] = new
+        return cache
+    p = torch.as_tensor(pos, device=cache.device)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, p.expand(cache.shape[0]) if p.dim() == 0 else p] = new[:, 0]
     return cache
 
 

@@ -8,6 +8,7 @@ params, as in the reference.  ``repro.sharding.maybe_constrain`` /
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -138,12 +139,20 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device
+                   ) -> torch.Tensor:
+    """:func:`rope_freqs` as float32 on ``device``, copied there once: a
+    host→device copy cannot be captured into a CUDA graph."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (B, S, H, D) — rotate the full head dim."""
     d = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
-                            device=x.device)                      # (D/2,)
+    freqs = _rope_freqs_on(d, theta, x.device)                  # (D/2,)
     angles = positions[..., None].to(torch.float32) * freqs     # (B, S, D/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

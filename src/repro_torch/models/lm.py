@@ -8,6 +8,9 @@ over layers in Python and slices layer ``i`` out of every stacked leaf
 (``packed[i]``, ``table[i]``, ``scale[i]`` for a packed projection).
 The same forward serves prefill (returns the KV cache) and decode
 (single token against a preallocated cache, written in place).
+Where the reference runs ``jax.jit(decode_step)``, the port captures
+one decode step over one cache as a CUDA graph and replays it
+(:class:`CapturedDecode`); prefill stays eager.
 
 Ported: GQA attention mixers with dense MLPs.  MLA, MoE, the SSM mixers
 and prologue layers wait for ROADMAP A5; the paged KV cache for A6; the
@@ -25,7 +28,8 @@ from repro_torch.models.common import (DEFAULT_DTYPE, embed_init,
                                        embedding_lookup, norm_apply,
                                        norm_init, unembed)
 
-__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step"]
+__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
+           "CapturedDecode"]
 
 
 def _check_supported(cfg) -> list[tuple[str, str]]:
@@ -202,3 +206,91 @@ def decode_step(params, cache, token, pos, cfg):
                             cache=cache, pos=pos)
     return logits[:, 0], cache
 
+
+class CapturedDecode:
+    """``decode_step(params, cache, token, pos, cfg)`` captured once as a
+    CUDA graph over one cache, and replayed — the port's counterpart of
+    the reference's ``jax.jit(decode_step)``.
+
+    The graph's static state is the cache (every step writes it in
+    place) and three tensors of this object: ``token`` and ``pos``,
+    ``(batch,)`` int64 filled before each replay (positions are always
+    per row here, never a Python int, which a graph would bake in), and
+    ``logits``, ``(batch, vocab)``, which every call returns and the next
+    replay overwrites.
+
+    The first call after construction or :meth:`bind` captures: one
+    eager step with the call's own token and positions on this object's
+    stream (the warm-up — it builds the kernels, sets their
+    shared-memory attributes and grows ``codr_matmul``'s split-K scratch,
+    none of which may happen inside a capture), the capture, then the
+    replay that serves the call.  The warm-up and the replay write the
+    same rows twice with the same bits (see ``repro_torch.core.batching``
+    on re-run steps).  A failed capture raises; there is no eager
+    fallback on the card.  CPU callers run :func:`decode_step`
+    themselves.
+
+    The split-K scratch that the warm-up grows and the graph reads and
+    writes at every replay is this object's own
+    (``codr_matmul.ops.scratch_pool``), not the per-stream buffer of
+    eager calls, so no other graph or eager call shares it, whatever
+    stream replays it.
+
+    ``captures`` and ``replays`` count this object's captures and
+    replays.  The kernels' launch counters tick in the warm-up only:
+    ``codr_matmul.ops.captured`` counts the calls a capture records, and
+    a replay calls no wrapper.
+    """
+
+    def __init__(self, params, cache, cfg, batch: int, *, device=None):
+        self.params, self.cfg = params, cfg
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CapturedDecode needs a CUDA device, got "
+                             f"{self.device}; on the CPU call decode_step")
+        self.token = torch.zeros(batch, dtype=torch.int64, device=self.device)
+        self.pos = torch.zeros(batch, dtype=torch.int64, device=self.device)
+        self._stream = torch.cuda.Stream(self.device)
+        self._scratch: dict = {}
+        self.captures = 0
+        self.replays = 0
+        self.bind(cache)
+
+    def bind(self, cache) -> None:
+        """Serve ``cache`` from now on.  The graph holds the addresses of
+        the cache it was captured over, so binding drops it and the next
+        call captures again."""
+        self.cache = cache
+        self.graph = None
+        self.logits = None
+
+    def capture(self) -> None:
+        """Warm up and capture over the current ``token`` / ``pos``."""
+        from repro_torch.kernels.codr_matmul import ops as mm_ops
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with mm_ops.scratch_pool(self._scratch):
+            with torch.cuda.stream(stream):
+                decode_step(self.params, self.cache, self.token, self.pos,
+                            self.cfg)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                logits, _ = decode_step(self.params, self.cache, self.token,
+                                        self.pos, self.cfg)
+        self.graph, self.logits = graph, logits
+        self.captures += 1
+
+    def __call__(self, token, pos) -> torch.Tensor:
+        """One step: ``token`` ``(batch,)`` ints (any device), ``pos`` an
+        int or ``(batch,)`` ints.  Returns the static ``logits``."""
+        self.token.copy_(token)
+        if isinstance(pos, int):
+            self.pos.fill_(pos)
+        else:
+            self.pos.copy_(pos)
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        self.replays += 1
+        return self.logits

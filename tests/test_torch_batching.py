@@ -323,8 +323,8 @@ def test_deadline_and_shedding(setup):
 
 def test_configure_resilience_and_rejections(setup):
     cb = _batcher(setup, n_slots=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="A7"):
-        cb.configure_resilience(restart_policy=object())
+    with pytest.raises(NotImplementedError, match="A10"):
+        cb.configure_resilience(supervisor=object())
     for kw in ({"n_slots": 0}, {"max_len": 1}, {"max_pending": 0}):
         with pytest.raises(ValueError):
             _batcher(setup, **kw)
@@ -365,8 +365,113 @@ def test_run_serve_continuous_packed(capsys):
     assert "pack bits/weight" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw,item", [({"chaos_seed": 1}, "A7"),
-                                     ({"packed_ckpt": "x.codr"}, "A8")])
-def test_run_serve_continuous_unported_modes_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_serve_continuous(device="cpu", **kw)
+# ---------------------------------------------------------------------------
+# positions as a Python int and as a device tensor; retried steps
+# ---------------------------------------------------------------------------
+
+POOLS = {"dense": {}, "bf16-paged": dict(kv_page_size=4),
+         "int8-paged": dict(kv_dtype="int8", kv_page_size=4)}
+
+
+def _pool(cfg, kv, n_slots=2, max_len=12):
+    """A pool of ``n_slots`` slots as the batcher builds it; paged pools
+    get every slot a table row of live pages."""
+    from repro_torch.models import cache as cache_mod
+    spec = None
+    if kv:
+        spec = cache_mod.PagedSpec(page_size=kv["kv_page_size"],
+                                   max_len=max_len, n_slots=n_slots,
+                                   kv_dtype=kv.get("kv_dtype", "bf16"))
+    pool = get_model(cfg).init_cache(cfg, n_slots, max_len, paged=spec,
+                                     device="cpu")
+    if spec is not None:
+        cache_mod.set_tables(pool, 1 + np.arange(
+            n_slots * spec.max_pages).reshape(n_slots, spec.max_pages))
+    return pool
+
+
+def _pool_bits(pool) -> list:
+    from repro_torch.core.tree import leaves_with_path
+    from repro_torch.models.cache import PagedKV
+    out = []
+    for _, leaf in leaves_with_path(pool):
+        out += list(leaf.tensors()) if isinstance(leaf, PagedKV) else [leaf]
+    return [t.clone() for t in out]
+
+
+@pytest.mark.parametrize("kv", list(POOLS.values()), ids=list(POOLS))
+def test_int_and_tensor_positions_give_the_same_bits(setup3, kv):
+    """``decode_step`` with ``pos`` a Python int (the eager callers'
+    path), a 0-dim tensor and a ``(B,)`` tensor (the captured step's):
+    the same logits and the same pool, bit for bit, step after step."""
+    cfg, params = setup3
+    api = get_model(cfg)
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (6, 2)))
+    pools = [_pool(cfg, kv) for _ in range(3)]
+    for i in range(6):
+        outs = [api.decode_step(params, pool, toks[i], pos, cfg)[0]
+                for pool, pos in zip(pools, (
+                    i, torch.tensor(i), torch.full((2,), i)))]
+        for got in outs[1:]:
+            assert torch.equal(got, outs[0]), i
+        bits = [_pool_bits(p) for p in pools]
+        for other in bits[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(bits[0], other))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_int8_page_rewrite_is_idempotent(seed):
+    """The int8 page write applied twice with the same row leaves the
+    bytes and scales of applying it once: the argument that a re-run
+    step writes what its failed attempt wrote."""
+    from repro_torch.models import cache as cache_mod
+    spec = cache_mod.PagedSpec(page_size=4, max_len=12, n_slots=2,
+                               kv_dtype="int8")
+    rng = np.random.default_rng(seed)
+    pkv = cache_mod.paged_kv_init(spec, (2, 8), device="cpu")
+    cache_mod.set_tables(pkv, np.array([[1, 2, 3], [4, 5, 6]]))
+    for t in range(11):
+        row = torch.from_numpy(rng.normal(size=(2, 1, 2, 8)).astype(
+            np.float32) * rng.uniform(0.1, 3.0)).to(torch.bfloat16)
+        pos = torch.tensor([t, min(t + 1, 11)])
+        pkv.update(row, pos)
+        once = [t_.clone() for t_ in pkv.tensors()]
+        pkv.update(row, pos)
+        for a, b in zip(once, pkv.tensors()):
+            assert torch.equal(a, b), t
+
+
+@pytest.mark.parametrize("kv", list(POOLS.values()), ids=list(POOLS))
+def test_retried_step_after_a_partial_write_equals_clean(setup3, monkeypatch,
+                                                         kv):
+    """A pooled step raises a transient error after its first layer wrote
+    its rows; the retry recomputes the step over those rows.  Tokens and
+    logits equal the clean solo reference bit for bit, on the dense, the
+    bf16-paged and the int8-paged pool."""
+    from repro_torch.runtime import resilience as res
+    cfg, _ = setup3
+    cb = _batcher(setup3, n_slots=2, max_len=24, record_logits=True, **kv)
+    cb.configure_resilience(retry_policy=res.RetryPolicy(max_retries=2,
+                                                         backoff_s=1e-4))
+    real, calls = tattn.gqa_decode, []
+
+    def decode(*a, **k):
+        out = real(*a, **k)
+        calls.append(1)
+        if len(calls) in (3 * 2 + 1, 3 * 5 + 2):   # after layers 0 and 1
+            raise res.TransientDispatchError("step failed midway")
+        return out
+    monkeypatch.setattr(tattn, "gqa_decode", decode)
+    p1, p2 = _prompts(cfg, [6, 9], seed=14)
+    handles = [cb.submit(p, max_new_tokens=8) for p in (p1, p2)]
+    outs = [h.result(timeout=T) for h in handles]
+    cb.stop_async()
+    monkeypatch.setattr(tattn, "gqa_decode", real)
+    assert len(calls) > 3 * 5 + 2
+    for p, h, out in zip((p1, p2), handles, outs):
+        ref, rows = cb.generate_reference(p, max_new_tokens=8,
+                                          record_logits=True)
+        assert out == ref
+        for got, want in zip(h.logits, rows):
+            np.testing.assert_array_equal(got, want)

@@ -42,7 +42,8 @@ def test_port_modules_cover_the_slice():
               "repro_torch.core.cost_model", "repro_torch.core.serving",
               "repro_torch.core.batching", "repro_torch.models.cache",
               "repro_torch.runtime", "repro_torch.runtime.resilience",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.models.lm",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.packed"):
         assert m in mods
 
 

@@ -200,7 +200,7 @@ def test_run_serve_returns_the_reference_keys(use_codr, capsys):
 
 
 def test_unported_paths_raise_with_the_roadmap_item(setup):
-    jcfg, *_ = setup
+    jcfg, *_, tcfg, _, tparams, _ = setup
     with pytest.raises(KeyError, match="A5"):
         get_config("deepseek-v2-236b")
     mla = dataclasses.replace(smoke_variant(get_config(ARCH)), use_mla=True)
@@ -214,10 +214,17 @@ def test_unported_paths_raise_with_the_roadmap_item(setup):
     for paged in (None, PagedSpec(page_size=2, max_len=4, n_slots=1)):
         with pytest.raises(NotImplementedError, match="A5"):
             get_model(mla).init_cache(mla, 1, 4, paged=paged, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        run_serve_continuous(device="cpu", chaos_seed=0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_serve_continuous(device="cpu", packed_ckpt="boot.codr")
+    cb = ContinuousBatcher(tparams, tcfg, n_slots=1, max_len=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        cb.configure_resilience(supervisor=object())
+    from repro_torch.runtime.resilience import retry_call
+    with pytest.raises(NotImplementedError, match="A10"):
+        retry_call(lambda: 1, supervisor=object())
+    cp = tcodr.compile_params(tparams, tcodr.EncodeConfig(n_unique=N_UNIQUE),
+                              accounting=False, device="cpu",
+                              plan={"embed": tcodr.EncodeConfig(n_unique=8)})
+    with pytest.raises(NotImplementedError, match="A9"):
+        tcodr.save_packed(cp, "never-written.codr")
 
 
 def test_entry_points_default_to_the_card():
@@ -239,3 +246,88 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# run_serve_continuous: tests/test_serve_driver.py's, chaos, the CLI
+# ---------------------------------------------------------------------------
+
+def test_serve_continuous_checked():
+    res = run_serve_continuous(arch=ARCH, n_requests=4, n_slots=2,
+                               prompt_len=4, gen_len=3, check=True,
+                               verbose=False, device="cpu")
+    assert res["checked"] == 4
+    assert len(res["gen"]) == 4
+    assert all(len(s) == 3 for s in res["gen"])
+    assert res["peak_active"] <= 2              # pool bound respected
+    assert res["prefills_run"] == 4
+
+
+def test_serve_continuous_packed_ckpt_int8(tmp_path):
+    """First boot compiles + saves the artifact and serves from the int8
+    paged pool, checked against the dense reference; a second boot maps
+    the same artifact and reproduces the first run's outputs."""
+    path = str(tmp_path / "ck.codr")
+    kw = dict(arch=ARCH, n_requests=3, n_slots=2, prompt_len=4, gen_len=3,
+              check=True, packed_ckpt=path, verbose=False, device="cpu")
+    res = run_serve_continuous(**kw)
+    import os
+    assert os.path.isdir(path)
+    assert res["checked"] == 3
+    assert res["kv_dtype"] == "int8"            # packed boot defaults paged
+    assert res["kv_page_size"] == 4
+    assert res["boot_s"] is not None
+    assert res["kv_bytes"] > 0
+    res2 = run_serve_continuous(**kw)
+    assert res2["gen"] == res["gen"]
+
+
+def test_serve_continuous_bf16_paged_matches_dense():
+    kw = dict(arch=ARCH, n_requests=3, n_slots=2, prompt_len=4, gen_len=3,
+              verbose=False, device="cpu")
+    dense = run_serve_continuous(**kw)
+    paged = run_serve_continuous(kv_dtype="bf16", kv_page_size=4,
+                                 check=True, **kw)
+    assert paged["gen"] == dense["gen"]
+    assert paged["checked"] == 3
+
+
+@pytest.mark.parametrize("chaos_seed", [0, 1, 3])
+def test_serve_continuous_chaos_checked(chaos_seed, capsys):
+    """``--chaos SEED --check``: the reference's plan over the batcher's
+    sites fires, and every output still equals the clean run's and the
+    solo reference's."""
+    from repro.launch.serve import run_serve_continuous as jrun
+    from repro.runtime import resilience as jres
+    kw = dict(arch=ARCH, n_requests=4, n_slots=2, prompt_len=5, gen_len=8)
+    clean = run_serve_continuous(verbose=False, device="cpu", **kw)
+    res = run_serve_continuous(chaos_seed=chaos_seed, check=True,
+                               device="cpu", **kw)
+    assert res["checked"] == 4 and res["gen"] == clean["gen"]
+    assert res["faults_fired"] >= 1
+    out = capsys.readouterr().out
+    plan = jres.FaultPlan.seeded(
+        chaos_seed, (jres.SITE_BATCHER_WORKER, jres.SITE_BATCHER_PREFILL,
+                     jres.SITE_BATCHER_DECODE),
+        n_faults=4, max_call=max(4, 4 * 8 // 2), latency_s=0.002)
+    assert f"chaos seed {chaos_seed}: {plan.describe()}" in out
+    assert "scheduled faults fired" in out
+    j = jrun(verbose=False, chaos_seed=chaos_seed, check=True, **kw)
+    assert set(res) == set(j)
+
+
+def test_serve_cli_runs_continuous_chaos_packed_check(tmp_path, capsys):
+    """``python -m repro_torch.launch.serve --continuous --chaos 0
+    --packed-ckpt PATH --check`` (``main``, on the CPU)."""
+    from repro_torch.launch.serve import main
+    path = str(tmp_path / "cli.codr")
+    main(["--continuous", "--chaos", "0", "--packed-ckpt", path, "--check",
+          "--requests", "3", "--slots", "2", "--prompt-len", "4",
+          "--gen-len", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"packed checkpoint written to {path}" in out
+    assert "chaos seed 0" in out and "check: 3/3" in out
+    main(["--batch", "1", "--prompt-len", "2", "--gen-len", "2", "--codr",
+          "--device", "cpu"])
+    assert "measured on the packed representation" in \
+        capsys.readouterr().out

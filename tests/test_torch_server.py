@@ -345,10 +345,24 @@ def test_stop_from_a_done_callback_raises(compiled, rng):
 @pytest.mark.parametrize("kw", ["injector", "retry_policy", "restart_policy",
                                 "supervisor"])
 def test_configure_resilience_refuses_until_ported(compiled, kw):
+    """The serving supervisor waits for ROADMAP A10: with it, nothing is
+    installed; the three ported hooks install (and clear) alone."""
+    from repro_torch.runtime import resilience as res
+    hooks = {"injector": res.FaultInjector(res.FaultPlan()),
+             "retry_policy": res.RetryPolicy(),
+             "restart_policy": res.RestartPolicy(),
+             "supervisor": object()}
     server = compiled.serve()
-    with pytest.raises(NotImplementedError, match="A7"):
-        server.configure_resilience(**{kw: object()})
+    with pytest.raises(NotImplementedError, match="A10"):
+        server.configure_resilience(**{kw: hooks[kw], "supervisor":
+                                       object()})
+    assert server._injector is server._retry_policy is None
+    assert server._restart_policy is None
+    if kw != "supervisor":
+        assert server.configure_resilience(**{kw: hooks[kw]}) is server
+        assert getattr(server, "_" + kw) is hooks[kw]
     assert server.configure_resilience() is server
+    assert getattr(server, "_" + kw, None) is None
 
 
 def test_server_argument_validation(compiled):
