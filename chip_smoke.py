@@ -71,8 +71,21 @@ models through the port's servers and its checkpoint:
   and ``load_packed(mmap=True)`` onto the card, teacher-forced logits
   bit for bit, then ``run_serve_continuous`` with chaos and a packed
   checkpoint at its smoke
-  size.  A host-only line gives the paper's cost-model ratios (a model
-  estimate, not a measurement).
+  size.
+
+Last, with qwen's packs freed, deepseek-v2-236b at its published widths
+(MLA, 160 routed experts top-6 + 2 shared, the dense prologue layer),
+depth cut 60 -> 3 (the prologue and two MoE layers), ~9.3 B parameters
+drawn on the card and packed to 4 bits: prefill on ``sm90``, 63 decode
+steps replayed from one CUDA graph on ``splitk`` and held bit for bit
+to the eager loop, the ``codr_matmul`` launches held to the counts the
+code gives (24 a prefill, 21 a step), the lane against ``tiled`` in
+float32, a profiled window of replays, every new projection shape at
+M = 4 and 128, and four requests through the batcher on the dense,
+bf16-paged and int8-paged pools (captured == eager, bf16 paged ==
+dense, int8 within 0.10); peak device memory per step of the phase.
+A host-only line gives the paper's cost-model ratios (a model estimate,
+not a measurement).
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after.  A CUDA graph's replays launch its kernels with no
@@ -628,7 +641,8 @@ def _step_logits(api, params, tokens, cfg, gen_len, *, captured: bool):
     return rows
 
 
-def _profile_replay(api, params, cfg, tokens, gen_len) -> dict:
+def _profile_replay(api, params, cfg, tokens, gen_len, per_forward: int,
+                    label: str = "serve") -> dict:
     """``run_serve``'s loop replayed from one CUDA graph over the main
     path's full-length cache.  After the step that captures, the other
     steps run back to back (each feeds the next its token on the device;
@@ -661,13 +675,12 @@ def _profile_replay(api, params, cfg, tokens, gen_len) -> dict:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
     out = _profile(window, "codr_matmul", MM_KERNEL_NAMES)
-    per_forward = 7 * cfg.n_layers
     out.update(replays=n, host_clock_ms_per_step=host_ms / n,
                profiled_ms_per_step=out["wall_ms"] / n,
                device_busy_ms_per_step=out["device_busy_ms"] / n)
-    _say_profile(f"serve profile, {n} replayed steps back to back (one "
+    _say_profile(f"{label} profile, {n} replayed steps back to back (one "
                  f"sync at the end) [{SMI}]", out, "codr_matmul")
-    say(f"serve replay window: {host_ms / n:.3f} ms/step on the host clock "
+    say(f"{label} replay window: {host_ms / n:.3f} ms/step on the host clock "
         f"unprofiled, {out['profiled_ms_per_step']:.3f} ms/step profiled, "
         f"device busy {out['device_busy_ms_per_step']:.3f} ms/step, idle "
         f"share {out['idle']}; the profiler counted "
@@ -676,8 +689,9 @@ def _profile_replay(api, params, cfg, tokens, gen_len) -> dict:
         f"moved {ops.launches - counted[0]} / {ops.captured - counted[1]}")
     if out["codr_matmul_launches"] != per_forward * n or \
             (ops.launches, ops.captured) != counted:
-        fail(f"replays launched {out['codr_matmul_launches']} codr_matmul "
-             f"kernels, expected {per_forward} x {n}, or a counter moved")
+        fail(f"{label}: replays launched {out['codr_matmul_launches']} "
+             f"codr_matmul kernels, expected {per_forward} x {n}, or a "
+             f"counter moved")
     return out
 
 
@@ -1047,7 +1061,7 @@ def serve_path(args) -> tuple:
     # replayed
     prof = _profile_step(api, params, cfg, tokens)
     graph_loop["profile"] = _profile_replay(api, params, cfg, tokens,
-                                            gen_len)
+                                            gen_len, per_forward)
 
     # per decode step: every projection of every layer at M = 4
     keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bytes", "ops")
@@ -1875,6 +1889,417 @@ def checkpoint_phase(args, packs, cfg) -> dict:
     return {"save_s": save_s, "boot_s": boot_s, "bytes_on_disk": n_bytes}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: deepseek-v2-236b serving on codr_matmul (MLA, MoE, prologue)
+# ---------------------------------------------------------------------------
+
+# depth cut 60 -> 3: the dense prologue layer and two scanned MoE layers,
+# so the stacked expert packs are sliced at a layer index >= 1
+DS_LAYERS = 3
+# codr_matmul calls a forward makes, by the code (models/attention.py,
+# models/moe.py): per layer MLA's q_a, q_b, kv_a, kv_b and o projections
+# plus the prologue's MLP or the MoE layer's shared experts (up, gate,
+# down) in prefill; a decode step takes kv_b through dense_weight (the
+# absorbed form), so 7 there.  The router and the routed experts are
+# weights decoded on dispatch, no kernel
+DS_PER_PREFILL = 8 * DS_LAYERS
+DS_PER_STEP = 7 * DS_LAYERS
+DS_BATCH_LENS = (5, 12, 17, 24)        # prompt lengths of the batcher phase
+
+
+def _peak(label: str, peaks: dict) -> None:
+    """Record and print the peak device memory since the last reset."""
+    import torch
+    peaks[label] = torch.cuda.max_memory_allocated()
+    say(f"deepseek peak device memory, {label}: {peaks[label]} bytes")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _ds_shapes(params) -> dict:
+    """``(K, N) -> [(name, PackedLinear)]`` of every projection shape the
+    path sends through codr_matmul: the prologue layer's and layer 0 of
+    the stack's."""
+    layer0 = {}
+    pro = params["prologue"][0]
+    for name, pl in pro["mixer"].items():
+        if name.endswith("_proj"):
+            layer0[f"mla/{name}"] = pl
+    for name, pl in pro["mlp"].items():
+        layer0[f"prologue_mlp/{name}"] = pl
+    for name, pl in params["stack"]["b0"]["mlp"]["shared"].items():
+        layer0[f"shared/{name}"] = pl[0]
+    shapes: dict = {}
+    for name, pl in layer0.items():
+        shapes.setdefault((pl.weight.shape[0], pl.out_features), []).append(
+            (name, pl))
+    return shapes
+
+
+def _ds_calls(name: str, decode: bool) -> int:
+    """How many codr_matmul calls of a forward use the projection
+    ``name`` of :func:`_ds_shapes`: an MLA projection one a layer (but
+    ``kv_b`` none in decode), the prologue's MLP once, the shared experts
+    once a MoE layer."""
+    if name.startswith("mla/"):
+        return 0 if decode and name == "mla/kv_b_proj" else DS_LAYERS
+    if name.startswith("shared/"):
+        return DS_LAYERS - 1
+    return 1
+
+
+def _ds_shape_rows(args, shapes, batch: int, prompt_len: int) -> list:
+    """Each projection shape at M = batch and M = batch * prompt_len, L2
+    flushed: the routed instance held to the plain version, and its ms
+    beside the plain version's, ``torch.matmul`` bf16 on the dense weight
+    and the bound."""
+    import torch
+
+    from repro_torch.core.engine import full_fp32
+    from repro_torch.kernels.codr_matmul import ops, ref
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        flush_buf.zero_()
+    xgen = torch.Generator(device="cuda").manual_seed(args.seed + 11)
+    rows = []
+    for (k, n), named in shapes.items():
+        pl = named[0][1]
+        w = pl.weight
+        wd = pl.dense(torch.bfloat16)
+        args_w = (w.packed, w.table, w.scale.reshape(-1))
+        for m in (batch, batch * prompt_len):
+            x = torch.randn(m, k, generator=xgen, device="cuda")
+            routed = ops.pick_impl(m, w.bits)
+
+            def call(x=x, args_w=args_w, n=w.shape[1], bits=w.bits):
+                return ops.codr_matmul_cuda(x, *args_w, bits=bits, n=n)
+            yk = call()
+            with full_fp32():
+                yp = ref.codr_matmul_ref(x, *args_w, bits=w.bits,
+                                         n=w.shape[1])
+            err = float((yk - yp).abs().max())
+            rtol, atol = MM_F32
+            if not bool(((yk - yp).abs() <= atol + rtol * yp.abs()).all()):
+                fail(f"deepseek codr_matmul [{routed}] {k}x{n} M={m}: "
+                     f"kernel vs plain max-abs {err}")
+            if not torch.equal(yk, call()):
+                fail(f"deepseek codr_matmul [{routed}] {k}x{n} M={m}: two "
+                     f"calls differ")
+            n_bytes = x.numel() * 4 + w.packed.numel() * 4 \
+                + w.table.numel() * 4 + 4 + m * w.shape[1] * 4
+            b_ms, b_by = bound(n_bytes, 2 * m * k * w.shape[1], BF16_FLOPS)
+            xb = x.to(torch.bfloat16)
+            with full_fp32():
+                row = {"proj": " + ".join(name for name, _ in named),
+                       "names": [name for name, _ in named],
+                       "m": m, "k": k, "n": n, "bits": w.bits,
+                       "impl": routed, "max_abs_err": err,
+                       "ms": cold_ms(call, 20, flush),
+                       "plain_ms": cold_ms(lambda: ref.codr_matmul_ref(
+                           x, *args_w, bits=w.bits, n=w.shape[1]), 5,
+                           flush),
+                       "library_ms": cold_ms(lambda: torch.matmul(xb, wd),
+                                             20, flush),
+                       "bytes": n_bytes, "ops": 2 * m * k * w.shape[1],
+                       "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            say(f"deepseek codr_matmul {row['proj']} {k}x{n} M={m} "
+                f"({w.bits}-bit): routed [{routed}] {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, torch.matmul bf16 "
+                f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"max-abs-diff {err:.3e} [{SMI}]")
+        del wd
+    return rows
+
+
+def _ds_batcher(packs, cfg, prompts, peaks) -> dict:
+    """Four requests on the dense, bf16-paged and int8-paged pools, each
+    captured and eager with the same bits; bf16 paged == dense and int8
+    within 0.10 of the dense spread under teacher forcing (prefill rows
+    exact).  Pooled == solo is held for qwen only, as in the reference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.codr_matmul import ops
+    bits = packs.params["stack"]["b0"]["mixer"]["q_a_proj"][0].weight.bits
+    runs, lanes = {}, {}
+    for label, kv in POOLS.items():
+        ops.launches = ops.captured = 0
+        ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+        pair = {mode: _batcher_run(packs, cfg, prompts, ops,
+                                   eager=mode == "eager", **kv)
+                for mode in ("captured", "eager")}
+        _same_bits(pair["eager"], pair["captured"],
+                   f"deepseek {label}: eager vs captured")
+        cap = pair["captured"]
+        graph = cap["cb"]._graph
+        want_pre = dict.fromkeys(ops.IMPLS, 0)
+        for n in DS_BATCH_LENS:
+            want_pre[ops.pick_impl(n, bits)] += DS_PER_PREFILL
+        want_dec = dict.fromkeys(ops.IMPLS, 0)
+        want_dec[ops.pick_impl(4, bits)] += DS_PER_STEP
+        if (cap["prefill"] != want_pre or cap["decode"] != want_dec
+                or graph.captures != 1
+                or graph.replays != cap["cb"].steps_run):
+            fail(f"deepseek batcher {label}: codr_matmul launches "
+                 f"{cap['prefill']} / {cap['decode']} (captures "
+                 f"{graph.captures}, replays {graph.replays}, steps "
+                 f"{cap['cb'].steps_run}), the routing rule predicts "
+                 f"{want_pre} / {want_dec}")
+        lanes[label] = {mode: {"tokens_s": r["tokens_s"],
+                               "step_ms_median": r["step_ms_median"],
+                               "steps_run": r["cb"].steps_run}
+                        for mode, r in pair.items()}
+        lanes[label]["launches_by_impl"] = {"prefill": cap["prefill"],
+                                            "decode": cap["decode"]}
+        say(f"deepseek batcher {label} pool: captured step median "
+            f"{lanes[label]['captured']['step_ms_median']:.3f} ms, "
+            f"{lanes[label]['captured']['tokens_s']:.3f} tokens/s; eager "
+            f"step median {lanes[label]['eager']['step_ms_median']:.3f} ms; "
+            f"eager and captured equal bit for bit; codr_matmul launches "
+            f"prefill {cap['prefill']}, warm-up {cap['decode']} (routing "
+            f"predicts {want_pre} / {want_dec}) [{SMI}]")
+        for r in pair.values():
+            r["cb"]._graph = None          # free the graph's memory pool
+        runs[label] = cap["cb"]
+        torch.cuda.empty_cache()
+    _peak("batcher runs", peaks)
+    # teacher-forced through the dense pool's tokens: bf16 paged == dense
+    # bit for bit, int8 within 0.10 of the dense spread
+    dense = runs["dense"]
+    devs = []
+    for i, p in enumerate(prompts):
+        toks, _ = dense.generate_reference(p, max_new_tokens=BATCH_GEN)
+        rows = dense.replay_logits(p, toks)
+        if not np.array_equal(runs["bf16 paged"].replay_logits(p, toks),
+                              rows):
+            fail(f"deepseek batcher: bf16 paged logits of request {i} "
+                 f"differ from the dense pool's")
+        got = runs["int8 paged"].replay_logits(p, toks)
+        if not np.array_equal(got[0], rows[0]):
+            fail(f"deepseek batcher: int8 prefill row of request {i} is "
+                 f"not bit-exact")
+        spread = float(rows.max() - rows.min()) or 1.0
+        devs.append(float(np.abs(got - rows).max()) / spread)
+    kv = {label: cb.kv_bytes() for label, cb in runs.items()}
+    say(f"deepseek batcher: bf16 paged == dense bit for bit over "
+        f"replay_logits for all {len(prompts)} requests; int8 paged "
+        f"teacher-forced deviation {[round(d, 5) for d in devs]} of the "
+        f"dense spread (bound 0.10); kv_bytes {kv}")
+    if not max(devs) < 0.10:
+        fail(f"deepseek batcher: int8 deviation {max(devs)} >= 0.10")
+    _peak("batcher checks", peaks)
+    return {"lanes": lanes, "int8_deviation": devs, "kv_bytes": kv}
+
+
+def deepseek_phase(args) -> dict:
+    """deepseek-v2-236b at its published widths, depth cut to 3, served
+    from 4-bit packs through the entry points a user calls; returns the
+    phase's part of the ``codr_matmul`` row."""
+    import numpy as np
+    import torch
+
+    import repro_torch.api as codr
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import full_fp32
+    from repro_torch.core.tree import leaves_with_path
+    from repro_torch.kernels.codr_matmul import ops
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DS_LAYERS)
+    batch, prompt_len, gen_len = 4, 32, 32    # run_serve's defaults
+    api = get_model(cfg)
+    peaks: dict = {}
+    say(f"deepseek: {cfg.name} at its published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, MLA q_lora {cfg.q_lora_rank} "
+        f"kv_lora {cfg.kv_lora_rank} nope {cfg.nope_head_dim} rope "
+        f"{cfg.rope_head_dim} v {cfg.v_head_dim}, {cfg.n_experts} routed "
+        f"experts top-{cfg.moe_top_k} of width {cfg.moe_d_ff} + "
+        f"{cfg.n_shared_experts} shared, prologue d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}); depth cut 60 -> {cfg.n_layers} (the prologue "
+        f"and {cfg.n_periods} MoE layers); batch {batch}, prompt "
+        f"{prompt_len}, gen {gen_len}; random weights (seed {args.seed})")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = api.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(leaf.numel() for _, leaf in leaves_with_path(params))
+    t0 = time.perf_counter()
+    compiled = codr.compile_params(params, codr.EncodeConfig(n_unique=16),
+                                   backend="codr_matmul", accounting=False,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    del params
+    params = compiled.params
+    torch.cuda.empty_cache()
+    say(f"deepseek encode: {n_params} parameters drawn on the card in "
+        f"{init_s:.2f} s; compile_params (U = 16) {encode_s:.2f} s; "
+        f"{len(compiled.packed_paths)} packed projections + "
+        f"{len(compiled.embed_paths)} embeddings; packed "
+        f"{compiled.hbm_bytes()} bytes vs dense bf16 "
+        f"{compiled.dense_bf16_bytes()} bytes, "
+        f"{compiled.bits_per_weight():.4f} bits/weight")
+    _peak("init + encode", peaks)
+    bits = params["stack"]["b0"]["mixer"]["q_a_proj"][0].weight.bits
+
+    # -- the main path: prefill, then run_serve's loop replayed from one
+    # captured decode step
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device="cuda")
+    ops.launches = ops.captured = 0
+    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+    t0 = time.perf_counter()
+    logits, _ = api.prefill(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_by_impl = dict(ops.launches_by_impl)
+    prefill_launches = ops.launches
+    t0 = time.perf_counter()
+    out, _, n_steps = greedy_decode(api, params, tokens, cfg, gen_len)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches, captured = ops.launches, ops.captured
+    by_impl = dict(ops.launches_by_impl)
+    want_prefill = dict.fromkeys(ops.IMPLS, 0)
+    want_prefill[ops.pick_impl(batch * prompt_len, bits)] += DS_PER_PREFILL
+    want = dict(want_prefill)
+    want[ops.pick_impl(batch, bits)] += DS_PER_STEP
+    ms_step = decode_s / n_steps * 1e3
+    say(f"deepseek main path: prefill {prefill_ms:.3f} ms; {n_steps} decode "
+        f"steps replayed from one CUDA graph {decode_s * 1e3:.3f} ms "
+        f"({ms_step:.3f} ms/step, the warm-up step and the capture "
+        f"included); codr_matmul launches counted {launches}: "
+        f"{prefill_launches} in prefill ({DS_PER_PREFILL} expected), "
+        f"{launches - prefill_launches} in the warm-up step "
+        f"({DS_PER_STEP} expected); {captured} calls recorded at the "
+        f"capture; by instance prefill {prefill_by_impl}, in all {by_impl} "
+        f"(routing predicts {want_prefill} / {want}) [{SMI}]")
+    if (prefill_launches != DS_PER_PREFILL or captured != DS_PER_STEP
+            or launches != DS_PER_PREFILL + DS_PER_STEP
+            or prefill_by_impl != want_prefill or by_impl != want
+            or n_steps != prompt_len + gen_len - 1):
+        fail(f"deepseek: codr_matmul launches {prefill_launches} / "
+             f"{launches} / captured {captured} ({prefill_by_impl} / "
+             f"{by_impl}), expected {DS_PER_PREFILL} / "
+             f"{DS_PER_PREFILL + DS_PER_STEP} / {DS_PER_STEP} "
+             f"({want_prefill} / {want})")
+    if tuple(logits.shape) != (batch, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"deepseek: prefill logits {tuple(logits.shape)} not finite")
+    if tuple(out.shape) != (batch, gen_len) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail(f"deepseek: generated tokens {tuple(out.shape)} out of range")
+    _peak("prefill + captured decode loop", peaks)
+    t0 = time.perf_counter()
+    out_eager, _, _ = greedy_decode(api, params, tokens, cfg, gen_len,
+                                    eager=True)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    if not torch.equal(out, out_eager):
+        fail("deepseek: the replayed loop's tokens differ from the eager "
+             "loop's")
+    eager_rows = _step_logits(api, params, tokens, cfg, gen_len,
+                              captured=False)
+    replay_rows = _step_logits(api, params, tokens, cfg, gen_len,
+                               captured=True)
+    if len(eager_rows) != n_steps or len(replay_rows) != n_steps:
+        fail(f"deepseek: {len(eager_rows)} / {len(replay_rows)} steps")
+    for i, (a, b) in enumerate(zip(eager_rows, replay_rows)):
+        if not torch.equal(a, b):
+            fail(f"deepseek decode step {i}: replayed logits differ from "
+                 f"eager (max-abs {float((a.float() - b.float()).abs().max())})")
+    del eager_rows, replay_rows
+    torch.cuda.empty_cache()
+    say(f"deepseek graph: {n_steps} steps, tokens equal and logits equal "
+        f"bit for bit at every step; eager {eager_ms:.3f} ms/step vs "
+        f"replayed {ms_step:.3f} ms/step [{SMI}]")
+    say(f"deepseek sample generation (first row): {out[0, :16].tolist()}")
+    _peak("eager loop + step-by-step logits", peaks)
+
+    # -- the codr_matmul lane against the tiled lane, teacher-forced in
+    # float32 (the qwen path's gate); bfloat16 printed, not a check
+    tiled = _rebind(params, "tiled")
+    with full_fp32():
+        f32 = {lane: _teacher_forced(api, p, cfg, tokens, torch.float32)
+               for lane, p in (("codr_matmul", params), ("tiled", tiled))}
+    lane_err = 0.0
+    for i, (a, b) in enumerate(zip(f32["codr_matmul"], f32["tiled"])):
+        what = "prefill" if i == 0 else f"decode step {i - 1}"
+        lane_err = max(lane_err, _lane_check(a, b, f"deepseek {what} "
+                                                   f"(float32)"))
+    del f32
+    bf16 = {lane: _teacher_forced(api, p, cfg, tokens, torch.bfloat16)
+            for lane, p in (("codr_matmul", params), ("tiled", tiled))}
+    bf16_err = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(bf16["codr_matmul"], bf16["tiled"])]
+    if not torch.equal(bf16["codr_matmul"][0], logits):
+        fail("deepseek: the codr_matmul lane's prefill differs from the main "
+             "path's")
+    del bf16, tiled
+    torch.cuda.empty_cache()
+    say(f"deepseek lanes: codr_matmul vs tiled in float32 max-abs "
+        f"{lane_err:.5f} (gated); in bfloat16, not a check, per step "
+        f"{[round(e, 5) for e in bf16_err]}")
+    _peak("lane check", peaks)
+
+    # -- where a replayed step's time goes
+    prof = _profile_replay(api, params, cfg, tokens, gen_len, DS_PER_STEP,
+                           label="deepseek")
+    torch.cuda.empty_cache()
+    _peak("profiled replays", peaks)
+
+    # -- the new projection shapes at M = 4 and 128
+    say(f"deepseek clocks before the per-shape rows: {clocks()}")
+    rows = _ds_shape_rows(args, _ds_shapes(params), batch, prompt_len)
+    keys = ("ms", "plain_ms", "library_ms", "bytes", "ops")
+    fwd, pre = ({key: sum(r[key] * sum(_ds_calls(name, decode)
+                                       for name in r["names"])
+                          for r in rows if r["m"] == m)
+                 for key in keys}
+                for m, decode in ((batch, True), (batch * prompt_len, False)))
+    b_ms, b_by = bound(fwd["bytes"], fwd["ops"], BF16_FLOPS)
+    say(f"deepseek codr_matmul one decode step (M={batch}, {DS_PER_STEP} "
+        f"launches, sums of the per-shape rows): routed "
+        f"[{ops.pick_impl(batch, bits)}] {fwd['ms']:.4f} ms, plain "
+        f"{fwd['plain_ms']:.4f} ms, torch.matmul bf16 "
+        f"{fwd['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); prefill "
+        f"(M={batch * prompt_len}, {DS_PER_PREFILL} launches): routed "
+        f"[{ops.pick_impl(batch * prompt_len, bits)}] {pre['ms']:.4f} ms, "
+        f"plain {pre['plain_ms']:.4f} ms, torch.matmul bf16 "
+        f"{pre['library_ms']:.4f} ms [{SMI}]")
+    torch.cuda.empty_cache()
+
+    # -- the continuous batcher on the three pools
+    rng = np.random.default_rng(args.seed + 13)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in DS_BATCH_LENS]
+    batcher = _ds_batcher(compiled, cfg, prompts, peaks)
+    return {"config": f"{cfg.name}, published widths, depth 60 -> "
+                      f"{cfg.n_layers}",
+            "launches": launches, "launches_by_impl": by_impl,
+            "prefill_launches_by_impl": prefill_by_impl,
+            "captured_calls": captured,
+            "calls_per_prefill": DS_PER_PREFILL,
+            "calls_per_step": DS_PER_STEP,
+            "main_path": {"prefill_ms": prefill_ms, "ms_per_step": ms_step,
+                          "eager_ms_per_step": eager_ms,
+                          "decode_s": decode_s, "init_s": init_s,
+                          "encode_s": encode_s, "n_params": n_params,
+                          "packed_bytes": compiled.hbm_bytes(),
+                          "dense_bf16_bytes": compiled.dense_bf16_bytes(),
+                          "bits_per_weight": compiled.bits_per_weight()},
+            "lane_vs_tiled_max_abs_err_f32": lane_err,
+            "lane_vs_tiled_bf16": bf16_err, "profile": prof,
+            "per_step": {**fwd, "bound_ms": b_ms, "bound_by": b_by},
+            "per_prefill_sums": pre, "per_shape": rows, "batcher": batcher,
+            "peak_memory_bytes": peaks}
+
+
 def cost_model_line(compiled) -> None:
     """The paper's Fig. 7/8 comparison over the VGG16 layers of the first
     path, from their measured encoded bits: SRAM accesses and energy of
@@ -2007,6 +2432,11 @@ def main() -> int:
     kernels[1]["checkpoint"] = checkpoint_phase(
         args, packs, get_config("qwen2.5-3b"))
     say(f"checkpoint phase: {time.perf_counter() - t0:.1f} s")
+    del packs                         # qwen's packs make room for deepseek
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels[1]["deepseek"] = deepseek_phase(args)
+    say(f"deepseek phase: {time.perf_counter() - t0:.1f} s")
     cost_model_line(cnn_model)
 
     say(json.dumps({"kernels": kernels}))

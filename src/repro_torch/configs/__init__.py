@@ -3,17 +3,27 @@
 ``get_config(arch_id)`` + reduced smoke variants, as ``repro.configs``.
 
 Only the configurations the port can run are registered: the dense
-family (qwen2.5-3b).  The MLA, MoE, SSM and encoder-decoder
-architectures of the reference registry wait for ROADMAP A5.
+family (qwen2.5-3b, qwen1.5-4b, command-r-plus-104b, qwen3-32b) and the
+MLA / MoE family (deepseek-v2-236b, granite-moe-1b-a400m).  The SSM,
+hybrid, vision and encoder-decoder architectures of the reference
+registry (xlstm-350m, jamba-v0.1-52b, internvl2-26b,
+seamless-m4t-medium) wait for ROADMAP A5.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.configs.command_r_plus_104b import CONFIG as _command_r
+from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek
+from repro_torch.configs.granite_moe_1b import CONFIG as _granite
+from repro_torch.configs.qwen1_5_4b import CONFIG as _qwen15
 from repro_torch.configs.qwen2_5_3b import CONFIG as _qwen25
+from repro_torch.configs.qwen3_32b import CONFIG as _qwen3
 
-REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [_qwen25]}
+REGISTRY: dict[str, ModelConfig] = {
+    c.name: c for c in [_qwen25, _qwen15, _command_r, _qwen3, _deepseek,
+                        _granite]}
 
 ARCH_IDS = list(REGISTRY)
 
@@ -21,8 +31,8 @@ ARCH_IDS = list(REGISTRY)
 def get_config(arch: str) -> ModelConfig:
     if arch not in REGISTRY:
         raise KeyError(f"arch {arch!r} is not in the port; it runs {ARCH_IDS} "
-                       f"(the MLA, MoE, SSM and encoder-decoder families "
-                       f"wait for ROADMAP A5)")
+                       f"(the SSM, hybrid, vision and encoder-decoder "
+                       f"architectures wait for ROADMAP A5)")
     return REGISTRY[arch]
 
 

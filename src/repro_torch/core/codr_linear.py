@@ -34,6 +34,7 @@ __all__ = ["PackedWeight", "PackedLinear", "PackedEmbedding", "pack_unique",
            "quantize_restrict"]
 
 _CHUNK = 1 << 24          # elements per encode pass (bounds the temporaries)
+_DECODE_CHUNK = 1 << 26   # weights per batched decode pass
 
 
 @dataclasses.dataclass
@@ -246,31 +247,69 @@ class PackedLinear:
         hands to the backend (``lax.scan`` slices the stack in JAX)."""
         return PackedLinear(self.weight[i], self.out_features, self.backend)
 
-    def dense(self) -> torch.Tensor:
-        """Decode to the dequantized dense weight, float32 — bit-for-bit
+    def dense(self, dtype=torch.float32) -> torch.Tensor:
+        """Decode to the dequantized dense weight — bit-for-bit
         ``dequantize_int8(restrict_unique(q, U), scale)`` of the original
-        leaf, the quantize-applied reference lane's weight."""
+        leaf in float32, the quantize-applied reference lane's weight,
+        then cast to ``dtype``.
+
+        Every matrix of a stacked leaf (an expert stack) decodes in one
+        batched pass through a lookup table per matrix that maps one
+        byte of packed words (``8/bits`` indices; a 16-bit index at 16
+        bits) to its ``table[i] * scale`` products, float32 as the
+        reference computes them, cast to ``dtype``.  Slabs of matrices
+        bound the temporaries; the result is one ``(*lead, K,
+        out_features)`` tensor of ``dtype``."""
         pw = self.weight
         k, n_pad = pw.shape
+        n = self.out_features
         lead = tuple(pw.packed.shape[:-2])
-        if lead:
-            flat_p = pw.packed.reshape((-1,) + tuple(pw.packed.shape[-2:]))
-            flat_t = pw.table.reshape(-1, pw.table.shape[-1])
-            dec = torch.stack([unpack_unique(p, t, bits=pw.bits, n=n_pad)
-                               for p, t in zip(flat_p, flat_t)])
-            dec = dec.reshape(lead + (k, n_pad))
-            scale = pw.scale.reshape(lead + (1, 1))
-        else:
-            dec = unpack_unique(pw.packed, pw.table, bits=pw.bits, n=n_pad)
-            scale = pw.scale
-        return dec.to(torch.float32)[..., : self.out_features] * scale
+        words = pw.packed.reshape((-1,) + tuple(pw.packed.shape[-2:]))
+        tables = pw.table.reshape(-1, pw.table.shape[-1])
+        scales = pw.scale.reshape(-1, 1).to(torch.float32)
+        if pw.bits == 16:                   # one index a 16-bit unit
+            units = words.view(torch.int16)
+            lut = tables.to(torch.float32) * scales          # (J, 2^16)
+            lut = lut.reshape(-1, 1 << 16, 1)
+        else:                               # 8/bits indices a byte
+            units = words.view(torch.uint8)
+            per = 8 // pw.bits
+            byte = torch.arange(256, device=words.device)
+            shifts = torch.arange(per, device=words.device) * pw.bits
+            idx = (byte[:, None] >> shifts) & ((1 << pw.bits) - 1)
+            lut = tables.to(torch.float32)[:, idx] * scales[:, :, None]
+        lut = lut.to(dtype)                          # (J, values, per)
+        n_vals, per = lut.shape[1], lut.shape[2]
+        lut = lut.reshape(-1, per)
+        out = torch.empty((words.shape[0], k, n), dtype=dtype,
+                          device=words.device)
+        step = max(1, _DECODE_CHUNK // max(k * n_pad, 1))
+        for s in range(0, words.shape[0], step):
+            j = min(step, words.shape[0] - s)
+            # each unit's row of the table of its own matrix
+            base = (torch.arange(s, s + j, dtype=torch.int32,
+                                 device=words.device) * n_vals)
+            if pw.bits == 16:               # int16 units sign-extend
+                u = (units[s:s + j].to(torch.int32) & 0xFFFF).add_(
+                    base.reshape(-1, 1, 1))
+            else:
+                u = torch.add(units[s:s + j], base.reshape(-1, 1, 1))
+            u = u.reshape(-1)
+            if n == n_pad:                  # straight into the result
+                torch.index_select(lut, 0, u,
+                                   out=out[s:s + j].view(-1, per))
+            else:
+                vals = torch.index_select(lut, 0, u)
+                out[s:s + j] = vals.reshape(j, k, n_pad)[..., :n]
+        return out.reshape(lead + (k, n))
 
 
 def dense_weight(w, dtype=None):
-    """Decode a :class:`PackedLinear` to its dense dequantized form; pass
-    plain tensors through."""
+    """Decode a :class:`PackedLinear` to its dense dequantized form
+    (float32, or ``dtype`` with the bits of the float32 form cast); pass
+    plain tensors through (cast to ``dtype`` if given)."""
     if isinstance(w, PackedLinear):
-        w = w.dense()
+        return w.dense(torch.float32 if dtype is None else dtype)
     return w if dtype is None else w.to(dtype)
 
 

@@ -10,6 +10,12 @@ reported weight bytes are measured on the stored packs.  Runs on the
 card unless the caller passes ``device="cpu"``; there the decode step is
 captured once as a CUDA graph and replayed (prefill stays eager).
 
+``arch`` (``--arch``) names any configuration the port registers —
+the dense family (qwen2.5-3b, qwen1.5-4b, qwen3-32b,
+command-r-plus-104b) and the MLA / MoE family (deepseek-v2-236b,
+granite-moe-1b-a400m); as in the reference, a run serves its smoke
+variant.
+
 ``packed_ckpt=PATH`` (``--packed-ckpt``) boots from a packed checkpoint
 artifact (:func:`repro_torch.api.save_packed`): if PATH exists it is
 mapped (no re-encode); otherwise the run compiles once, saves the
@@ -19,6 +25,7 @@ the batcher's sites with retry and restart budgets sized to it.
 
     python -m repro_torch.launch.serve --continuous --chaos 0 \
         --packed-ckpt PATH --check
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b --codr
 """
 from __future__ import annotations
 

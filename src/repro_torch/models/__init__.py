@@ -1,5 +1,6 @@
 """Model zoo facade of the port — the decoder-only branch of
-``repro.models.get_model``:
+``repro.models.get_model`` (the dense, MLA and MoE families, prologue
+layers included):
 
     api = get_model(cfg)
     params = api.init_params(gen, cfg)            # gen: torch.Generator

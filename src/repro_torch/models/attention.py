@@ -1,6 +1,8 @@
-"""Attention, the GQA half of ``repro.models.attention``: GQA (bias /
-qk-norm options), chunked flash-style softmax attention for prefill, and
-KV-cache decode.
+"""Attention — ``repro.models.attention`` on one device: GQA (bias /
+qk-norm options), chunked flash-style softmax attention for prefill,
+KV-cache decode, and DeepSeek-V2's Multi-head Latent Attention (MLA:
+the materialized form for prefill, the absorbed form for decode over a
+compressed ``(ckv, krot)`` cache).
 
 The model's attention is plain PyTorch here, as the reference's is plain
 JAX: the reference models never call the Pallas attention kernel, so
@@ -10,7 +12,9 @@ runs in float32 over bfloat16 operands (the reference's ``_einsum_f32``
 on an executing backend).
 Decode runs against a contiguous cache or a paged one
 (:class:`repro_torch.models.cache.PagedKV`, the continuous batcher's
-pool).  The MLA half waits for ROADMAP A5.
+pool).  The sequence-parallel ``decode_attn="dist"`` lane of the
+reference needs a mesh and waits for ROADMAP A10; with one device the
+reference takes the standard lane, and so does the port.
 """
 from __future__ import annotations
 
@@ -19,12 +23,15 @@ import math
 import torch
 
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.common import (apply_rope, dense_init, linear,
+from repro_torch.models.common import (apply_rope, dense_init,
+                                       dense_weight, linear, norm_apply,
                                        norm_init, rms_norm)
 
 __all__ = ["flash_attention", "decode_positions", "cache_update",
            "decode_attention", "gqa_init", "gqa_forward", "gqa_decode",
-           "gqa_cache_init", "gqa_cache_init_paged"]
+           "gqa_cache_init", "gqa_cache_init_paged", "mla_init",
+           "mla_forward", "mla_decode", "mla_cache_init",
+           "mla_cache_init_paged"]
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -124,6 +131,16 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor, pos
     return cache
 
 
+def _visible(pos, b: int, s: int, device) -> torch.Tensor:
+    """``(B, S)`` mask of the cache positions ``<= pos`` (scalar or per
+    row)."""
+    idx = torch.arange(s, device=device)
+    if isinstance(pos, int):             # no host→device copy
+        return (idx <= pos)[None, :].expand(b, s)
+    posb = torch.broadcast_to(torch.as_tensor(pos, device=device), (b,))
+    return idx[None, :] <= posb[:, None]
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos, *,
                      scale: float | None = None) -> torch.Tensor:
@@ -136,13 +153,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(b, sq, hkv, g, dk)
     scores = _einsum_f32("bqhgd,bshd->bhgqs", qg,
                          k_cache.to(qg.dtype)) * scale
-    idx = torch.arange(s, device=q.device)
-    if isinstance(pos, int):             # no host→device copy
-        mask = (idx <= pos)[None, :].expand(b, s)               # (B, S)
-    else:
-        posb = torch.broadcast_to(torch.as_tensor(pos, device=q.device),
-                                  (b,))
-        mask = idx[None, :] <= posb[:, None]
+    mask = _visible(pos, b, s, q.device)
     scores = torch.where(mask[:, None, None, None, :], scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     out = _einsum_f32("bhgqs,bshd->bqhgd", p.to(v_cache.dtype), v_cache)
@@ -239,3 +250,132 @@ def gqa_cache_init_paged(cfg, spec, dtype=torch.bfloat16, *,
                                     device=device),
             cache_lib.paged_kv_init(spec, feat, dtype, lead=lead,
                                     device=device))
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2) — compressed KV cache
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg, *, lead: tuple = ()) -> dict:
+    """MLA params; ``lead`` stacks them (the layer stack)."""
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "q_a_proj": dense_init(gen, d, qr, lead=lead),
+        "q_a_norm": norm_init(qr, "rmsnorm", lead=lead, device=gen.device),
+        "q_b_proj": dense_init(gen, qr, h * (dn + dr), lead=lead),
+        "kv_a_proj": dense_init(gen, d, kr + dr, lead=lead),
+        "kv_a_norm": norm_init(kr, "rmsnorm", lead=lead, device=gen.device),
+        "kv_b_proj": dense_init(gen, kr, h * (dn + dv), lead=lead),
+        "o_proj": dense_init(gen, h * dv, d, lead=lead),
+    }
+
+
+def _mla_q(p, x, cfg, positions):
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+    qa = norm_apply(linear(x, p["q_a_proj"]), p["q_a_norm"], "rmsnorm")
+    q = linear(qa, p["q_b_proj"]).reshape(b, s, h, dn + dr)
+    qn, qrot = q[..., :dn], q[..., dn:]
+    qrot = apply_rope(qrot, positions, cfg.rope_theta)
+    return qn, qrot
+
+
+def _mla_ckv(p, x, cfg, positions):
+    kr = cfg.kv_lora_rank
+    kv_a = linear(x, p["kv_a_proj"])
+    ckv = norm_apply(kv_a[..., :kr], p["kv_a_norm"], "rmsnorm")
+    krot = kv_a[..., kr:][:, :, None, :]                 # (B,S,1,dr)
+    krot = apply_rope(krot, positions, cfg.rope_theta)[:, :, 0]
+    return ckv, krot
+
+
+def mla_forward(p, x, cfg, positions, *, causal=True):
+    """Materialized form (prefill): the latent is expanded through
+    ``kv_b_proj`` into per-head keys and values and attended with the
+    plain chunked :func:`flash_attention` (Dk = nope + rope, Dv = v), as
+    the reference does.  Returns (out, (ckv, krot))."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    qn, qrot = _mla_q(p, x, cfg, positions)
+    ckv, krot = _mla_ckv(p, x, cfg, positions)
+    kv = linear(ckv, p["kv_b_proj"]).reshape(b, s, h, dn + dv)
+    kn, v = kv[..., :dn], kv[..., dn:]
+    k = torch.cat([kn, torch.broadcast_to(
+        krot[:, :, None, :], (b, s, h, dr)).to(kn.dtype)], dim=-1)
+    q = torch.cat([qn, qrot], dim=-1)
+    out = flash_attention(q, k, v, causal=causal,
+                          q_chunk=cfg.attn_q_chunk,
+                          kv_chunk=cfg.attn_kv_chunk,
+                          scale=1.0 / math.sqrt(dn + dr),
+                          acc_dtype=torch.float32 if cfg.attn_f32
+                          else torch.bfloat16)
+    out = linear(out.reshape(b, s, -1), p["o_proj"])
+    return out, (ckv, krot)
+
+
+def mla_decode(p, x, cfg, cache, pos):
+    """Absorbed decode: attention runs in the kv_lora latent space.
+    ``cache`` is ``(ckv (B,S,c), krot (B,S,dr))`` or two
+    :class:`~repro_torch.models.cache.PagedKV`, written in place at
+    ``pos`` (scalar or per-row ``(B,)``); per-token cache traffic is
+    ``c + dr`` per position instead of ``H·(dn+dv)``.  ``kv_b_proj``
+    enters as a weight, not a matmul: a packed leaf is decoded on
+    dispatch (``dense_weight``)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    c = cfg.kv_lora_rank
+    ckv_cache, krot_cache = cache
+    positions = decode_positions(pos, b, device=x.device)
+    qn, qrot = _mla_q(p, x, cfg, positions)              # (B,1,H,dn/dr)
+    ckv_new, krot_new = _mla_ckv(p, x, cfg, positions)
+    if isinstance(ckv_cache, cache_lib.PagedKV):
+        ckv_cache = ckv_cache.update(ckv_new, pos)
+        krot_cache = krot_cache.update(krot_new, pos)
+        ckv_dense, krot_dense = ckv_cache.gather(), krot_cache.gather()
+    else:
+        ckv_cache = cache_update(ckv_cache, ckv_new, pos)
+        krot_cache = cache_update(krot_cache, krot_new, pos)
+        ckv_dense, krot_dense = ckv_cache, krot_cache
+
+    w_kv_b = dense_weight(p["kv_b_proj"]).reshape(c, h, dn + dv)
+    w_uk, w_uv = w_kv_b[..., :dn], w_kv_b[..., dn:]
+    q_lat = _einsum_f32("bqhd,chd->bqhc", qn, w_uk.to(qn.dtype))
+    scores = (_einsum_f32("bqhc,bsc->bhqs", q_lat.to(ckv_dense.dtype),
+                          ckv_dense)
+              + _einsum_f32("bqhd,bsd->bhqs", qrot.to(krot_dense.dtype),
+                            krot_dense))
+    scores = scores / math.sqrt(dn + dr)
+    mask = _visible(pos, b, ckv_dense.shape[1], x.device)
+    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    attn = torch.softmax(scores, dim=-1)
+    out_lat = _einsum_f32("bhqs,bsc->bqhc", attn.to(ckv_dense.dtype),
+                          ckv_dense)
+    out = torch.einsum("bqhc,chd->bqhd", out_lat, w_uv.to(torch.float32))
+    out = linear(out.reshape(b, 1, h * dv).to(x.dtype), p["o_proj"])
+    return out, (ckv_cache, krot_cache)
+
+
+def mla_cache_init(cfg, batch: int, seq: int, dtype=torch.bfloat16, *,
+                   lead: tuple = (), device=None):
+    """Zeroed ``(ckv, krot)``: ``(*lead, batch, seq, kv_lora_rank)`` and
+    ``(*lead, batch, seq, rope_head_dim)``."""
+    lead = tuple(lead)
+    return (torch.zeros(lead + (batch, seq, cfg.kv_lora_rank), dtype=dtype,
+                        device=device),
+            torch.zeros(lead + (batch, seq, cfg.rope_head_dim), dtype=dtype,
+                        device=device))
+
+
+def mla_cache_init_paged(cfg, spec, dtype=torch.bfloat16, *,
+                         lead: tuple = (), device=None):
+    """Paged ``(ckv, krot)`` for a
+    :class:`~repro_torch.models.cache.PagedSpec`."""
+    return (cache_lib.paged_kv_init(spec, (cfg.kv_lora_rank,), dtype,
+                                    lead=lead, device=device),
+            cache_lib.paged_kv_init(spec, (cfg.rope_head_dim,), dtype,
+                                    lead=lead, device=device))

@@ -9,7 +9,10 @@ here move single-request caches in and out of that pool:
 
 * ``diff_axes`` discovers, per leaf, which axis is the batch axis —
   structurally, by comparing a batch-1 and a batch-2 cache made on the
-  ``meta`` device (stacked leaves put ``n_periods`` first).
+  ``meta`` device (stacked leaves put ``n_periods`` first; a prologue
+  layer's leaves are unstacked).  A leaf is any per-token buffer: GQA's
+  ``(k, v)`` of ``(…, Hkv, D)`` or MLA's ``(ckv, krot)`` of ``(…, c)``
+  and ``(…, dr)``.
 * ``write_slot`` block-writes a batch-1 cache (e.g. a prefill result at
   seq length P) into slot ``i`` of the pool.  Shorter-than-pool seq
   axes are written at offset 0: decode attention masks positions beyond

@@ -15,11 +15,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.codr_linear import PackedEmbedding, PackedLinear
+from repro_torch.core.codr_linear import (PackedEmbedding, PackedLinear,
+                                         dense_weight)
 
 __all__ = ["DEFAULT_DTYPE", "PARAM_DTYPE", "dense_init", "embed_init",
-           "linear", "embedding_lookup", "unembed", "rms_norm",
-           "layer_norm", "norm_apply", "norm_init", "act_fn", "rope_freqs",
+           "dense_weight", "linear", "embedding_lookup", "unembed",
+           "rms_norm", "layer_norm", "norm_apply", "norm_init", "act_fn", "rope_freqs",
            "apply_rope"]
 
 DEFAULT_DTYPE = torch.bfloat16
@@ -32,14 +33,15 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
     """Normal ``(*lead, d_in, d_out)`` weights on the generator's device;
     ``lead`` stacks independent matrices (the layer stack)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    # scaled in place: a full-width expert stack has no room for a copy
     return torch.randn(tuple(lead) + (d_in, d_out), generator=gen,
-                       device=gen.device, dtype=dtype) * scale
+                       device=gen.device, dtype=dtype).mul_(scale)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype=PARAM_DTYPE) -> torch.Tensor:
     return torch.randn((vocab, d), generator=gen, device=gen.device,
-                       dtype=dtype) * 0.02
+                       dtype=dtype).mul_(0.02)
 
 
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None

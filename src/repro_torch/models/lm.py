@@ -1,20 +1,23 @@
-"""Decoder-only language model, the dense family of ``repro.models.lm``.
+"""Decoder-only language model — ``repro.models.lm`` for the attention
+mixers.
 
 Params keep the reference's tree layout: the layers of one period live
-under ``params["stack"]`` with a leading ``n_periods`` axis, so the
-'/'-joined paths ``compile_params`` matches on are the reference's.
-Where the reference scans the stack with ``lax.scan``, the port loops
-over layers in Python and slices layer ``i`` out of every stacked leaf
-(``packed[i]``, ``table[i]``, ``scale[i]`` for a packed projection).
-The same forward serves prefill (returns the KV cache) and decode
-(single token against a preallocated cache, written in place).
-Where the reference runs ``jax.jit(decode_step)``, the port captures
-one decode step over one cache as a CUDA graph and replays it
-(:class:`CapturedDecode`); prefill stays eager.
+under ``params["stack"]`` with a leading ``n_periods`` axis, and the
+non-scanned prologue layers (DeepSeek's leading dense layer) in the list
+``params["prologue"]``, so the '/'-joined paths ``compile_params``
+matches on are the reference's.  Where the reference scans the stack
+with ``lax.scan``, the port loops over layers in Python and slices layer
+``i`` out of every stacked leaf (``packed[i]``, ``table[i]``,
+``scale[i]`` for a packed projection).  The same forward serves prefill
+(returns the KV cache) and decode (single token against a preallocated
+cache, written in place).  Where the reference runs
+``jax.jit(decode_step)``, the port captures one decode step over one
+cache as a CUDA graph and replays it (:class:`CapturedDecode`); prefill
+stays eager.
 
-Ported: GQA attention mixers with dense MLPs.  MLA, MoE, the SSM mixers
-and prologue layers wait for ROADMAP A5; the paged KV cache for A6; the
-training forward and loss for A11.
+Ported: GQA and MLA attention mixers, dense MLPs and MoE layers (routed
+plus shared experts), prologue layers.  The SSM mixers (mamba, mLSTM,
+sLSTM) wait for ROADMAP A5; the training forward and loss for A11.
 """
 from __future__ import annotations
 
@@ -34,19 +37,13 @@ __all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
 
 def _check_supported(cfg) -> list[tuple[str, str]]:
     """The period plan, or ``NotImplementedError`` naming the ROADMAP item
-    for what the port does not run yet."""
+    for a mixer the port does not run yet."""
     plan = cfg.layer_plan()
-    for kind, ffn in plan:
-        if kind != "attn" or cfg.use_mla:
+    for kind, _ in plan:
+        if kind != "attn":
             raise NotImplementedError(
-                f"{cfg.name}: mixer {'mla' if cfg.use_mla else kind!r} is "
-                f"not ported yet (ROADMAP A5: MLA and the SSM mixers)")
-        if ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP A5)")
-    if cfg.n_dense_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: prologue layers are not ported yet (ROADMAP A5)")
+                f"{cfg.name}: mixer {kind!r} is not ported yet (ROADMAP A5: "
+                f"the SSM mixers)")
     return plan
 
 
@@ -54,33 +51,36 @@ def _check_supported(cfg) -> list[tuple[str, str]]:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_period(gen: torch.Generator, cfg) -> dict:
-    """One period's params for all ``n_periods`` at once (leading axis)."""
-    lead = (cfg.n_periods,)
-    out = {}
-    for i, (_, ffn) in enumerate(_check_supported(cfg)):
-        p = {"norm1": norm_init(cfg.d_model, cfg.norm_type, lead=lead,
-                                device=gen.device),
-             "mixer": attn.gqa_init(gen, cfg, lead=lead)}
-        if ffn == "dense":
-            p["norm2"] = norm_init(cfg.d_model, cfg.norm_type, lead=lead,
-                                   device=gen.device)
-            p["mlp"] = moe_mod.mlp_init(gen, cfg.d_model, cfg.d_ff,
-                                        lead=lead)
-        out[f"b{i}"] = p
-    return out
+def _init_layer(gen: torch.Generator, ffn: str, cfg, lead: tuple) -> dict:
+    """One attention layer's params (stacked over ``lead``)."""
+    mixer = attn.mla_init if cfg.use_mla else attn.gqa_init
+    p = {"norm1": norm_init(cfg.d_model, cfg.norm_type, lead=lead,
+                            device=gen.device),
+         "mixer": mixer(gen, cfg, lead=lead)}
+    if ffn in ("dense", "moe"):
+        p["norm2"] = norm_init(cfg.d_model, cfg.norm_type, lead=lead,
+                               device=gen.device)
+        p["mlp"] = (moe_mod.moe_init(gen, cfg, lead=lead) if ffn == "moe"
+                    else moe_mod.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                          lead=lead))
+    return p
 
 
 def init_params(gen: torch.Generator, cfg) -> dict:
     """Random params on ``gen``'s device, drawn from ``gen``."""
+    lead = (cfg.n_periods,)
     params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model),
         "final_norm": norm_init(cfg.d_model, cfg.norm_type,
                                 device=gen.device),
-        "stack": _init_period(gen, cfg),
+        "stack": {f"b{i}": _init_layer(gen, ffn, cfg, lead)
+                  for i, (_, ffn) in enumerate(_check_supported(cfg))},
     }
     if not cfg.tied_embeddings:
         params["out_embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model)
+    if cfg.n_dense_layers:
+        params["prologue"] = [_init_layer(gen, "dense", cfg, ())
+                              for _ in range(cfg.n_dense_layers)]
     return params
 
 
@@ -88,25 +88,28 @@ def init_params(gen: torch.Generator, cfg) -> dict:
 # caches
 # ---------------------------------------------------------------------------
 
-def _mixer_cache(cfg, batch: int, seq: int, dtype, paged, device):
-    """One GQA mixer's cache, stacked over ``n_periods`` (the only mixer
-    ``_check_supported`` lets through: the MLA cache, paged or not, and
-    the SSM states wait for ROADMAP A5)."""
-    lead = (cfg.n_periods,)
+def _mixer_cache(cfg, batch: int, seq: int, dtype, paged, device,
+                 lead: tuple):
+    """One attention mixer's cache (stacked over ``lead``): GQA ``(k,
+    v)`` or MLA ``(ckv, krot)``, contiguous or paged."""
     if paged is not None:
-        return attn.gqa_cache_init_paged(cfg, paged, dtype, lead=lead,
-                                         device=device)
-    return attn.gqa_cache_init(cfg, batch, seq, dtype, lead=lead,
-                               device=device)
+        fn = (attn.mla_cache_init_paged if cfg.use_mla
+              else attn.gqa_cache_init_paged)
+        return fn(cfg, paged, dtype, lead=lead, device=device)
+    fn = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
+    return fn(cfg, batch, seq, dtype, lead=lead, device=device)
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=DEFAULT_DTYPE, paged=None,
                device=None) -> dict:
-    """Zeroed KV cache, ``{"stack": {"b<i>": (k, v)}}`` on ``device`` (the
-    card unless the caller names another): k, v of shape ``(n_periods,
-    batch, seq, n_kv_heads, head_dim)``, or, with ``paged`` (a
-    :class:`repro_torch.models.cache.PagedSpec`), :class:`PagedKV` pools
-    stacked over ``n_periods`` (``batch`` must equal ``paged.n_slots``,
+    """Zeroed KV cache on ``device`` (the card unless the caller names
+    another): ``{"stack": {"b<i>": pair}}`` with each pair stacked over
+    ``n_periods`` — GQA ``(k, v)`` of shape ``(n_periods, batch, seq,
+    n_kv_heads, head_dim)``, MLA ``(ckv, krot)`` of ``(n_periods, batch,
+    seq, kv_lora_rank / rope_head_dim)`` — plus ``"prologue"``, a list of
+    unstacked pairs, when the model has prologue layers.  With ``paged``
+    (a :class:`repro_torch.models.cache.PagedSpec`) every pair is two
+    :class:`PagedKV` pools (``batch`` must equal ``paged.n_slots``,
     ``seq`` its ``max_len``)."""
     if paged is not None and (batch != paged.n_slots
                               or seq != paged.max_len):
@@ -115,9 +118,14 @@ def init_cache(cfg, batch: int, seq: int, dtype=DEFAULT_DTYPE, paged=None,
             f"spec n_slots={paged.n_slots}/max_len={paged.max_len}")
     plan = _check_supported(cfg)
     dev = resolve_device(device)
-    return {"stack": {f"b{i}": _mixer_cache(cfg, batch, seq, dtype, paged,
-                                            dev)
-                      for i in range(len(plan))}}
+    out = {"stack": {f"b{i}": _mixer_cache(cfg, batch, seq, dtype, paged,
+                                           dev, (cfg.n_periods,))
+                     for i in range(len(plan))}}
+    if cfg.n_dense_layers:
+        out["prologue"] = [_mixer_cache(cfg, batch, seq, dtype, paged, dev,
+                                        ())
+                           for _ in range(cfg.n_dense_layers)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -132,16 +140,23 @@ def _layer(tree, i: int):
 
 
 def _block_apply(lp, x, cfg, mode, cache, pos, positions):
-    """One GQA block (+ its dense MLP, if the plan gives it one)."""
+    """One attention block (GQA or MLA) and its MLP or MoE, if the plan
+    gives it one."""
     h = norm_apply(x, lp["norm1"], cfg.norm_type, f32=cfg.norm_f32)
     if mode == "decode":
-        out, new_cache = attn.gqa_decode(lp["mixer"], h, cfg, cache, pos)
+        fn = attn.mla_decode if cfg.use_mla else attn.gqa_decode
+        out, new_cache = fn(lp["mixer"], h, cfg, cache, pos)
     else:
-        out, new_cache = attn.gqa_forward(lp["mixer"], h, cfg, positions)
+        fn = attn.mla_forward if cfg.use_mla else attn.gqa_forward
+        out, new_cache = fn(lp["mixer"], h, cfg, positions)
     x = x + out
     if "mlp" in lp:
         h = norm_apply(x, lp["norm2"], cfg.norm_type, f32=cfg.norm_f32)
-        x = x + moe_mod.mlp_forward(lp["mlp"], h, cfg.act)
+        if "router" in lp["mlp"]:
+            out = moe_mod.moe_forward(lp["mlp"], h, cfg, mode=mode)
+        else:
+            out = moe_mod.mlp_forward(lp["mlp"], h, cfg.act)
+        x = x + out
     return x, new_cache
 
 
@@ -150,7 +165,8 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
     """tokens (B, S) int → (logits, new_cache).
 
     mode='prefill': causal forward, logits for the LAST position, cache
-                    out (k, v stacked over the layers).
+                    out (each pair stacked over the layers; the prologue
+                    layers' pairs in a list).
     mode='decode' : S == 1, attends into ``cache`` at ``pos``, writing the
                     new KV row into it in place; returns it.
     """
@@ -165,6 +181,12 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
 
+    new_prologue = []
+    for i, lp in enumerate(params.get("prologue", [])):
+        c = cache["prologue"][i] if mode == "decode" else None
+        x, nc = _block_apply(lp, x, cfg, mode, c, pos, positions)
+        new_prologue.append(nc)
+
     caches: dict[str, list] = {f"b{i}": [] for i in range(len(plan))}
     for li in range(cfg.n_periods):
         period = _layer(params["stack"], li)
@@ -172,8 +194,7 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
             name = f"b{i}"
             layer_cache = None
             if mode == "decode":
-                k, v = cache["stack"][name]
-                layer_cache = (k[li], v[li])
+                layer_cache = tuple(t[li] for t in cache["stack"][name])
             x, nc = _block_apply(period[name], x, cfg, mode, layer_cache,
                                  pos, positions)
             if mode == "prefill":
@@ -183,9 +204,10 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
     if mode == "prefill":
         x = x[:, -1:]
         new_cache = {"stack": {
-            name: (torch.stack([k for k, _ in kv]),
-                   torch.stack([v for _, v in kv]))
-            for name, kv in caches.items()}}
+            name: tuple(torch.stack(parts) for parts in zip(*pairs))
+            for name, pairs in caches.items()}}
+        if cfg.n_dense_layers:
+            new_cache["prologue"] = new_prologue
     else:
         new_cache = cache             # the layers wrote into it in place
     logits = unembed(x, params.get("out_embed", params["embed"]))
@@ -213,7 +235,7 @@ class CapturedDecode:
     the reference's ``jax.jit(decode_step)``.
 
     The graph's static state is the cache (every step writes it in
-    place) and three tensors of this object: ``token`` and ``pos``,
+    place: the stack's layers and the prologue's alike) and three tensors of this object: ``token`` and ``pos``,
     ``(batch,)`` int64 filled before each replay (positions are always
     per row here, never a Python int, which a graph would bake in), and
     ``logits``, ``(batch, vocab)``, which every call returns and the next

@@ -9,7 +9,10 @@ eager step bit for bit at every step of ``greedy_decode`` (``run_serve``'s
 loop) and of the batcher's pooled run on the dense, bf16-paged and
 int8-paged pools, every request still equals its solo reference,
 binding a new cache forces a new capture, and the launch counters tick
-in the warm-up only.  The smoke variant of
+in the warm-up only; the same replayed == eager for the smoke
+deepseek-v2-236b (a prologue MLA layer, then MLA + MoE: the routing,
+the grouped expert compute and the decode of the expert stacks all run
+inside the graph).  The smoke variant of
 qwen2.5-3b with three layers, weights from a seeded generator, packed
 onto ``codr_matmul``.  Nothing here imports JAX, so on the card:
 
@@ -33,9 +36,9 @@ POOLS = {"dense": {}, "bf16-paged": dict(kv_page_size=4),
          "int8-paged": dict(kv_dtype="int8", kv_page_size=4)}
 
 
-def _model(device):
-    cfg = dataclasses.replace(smoke_variant(get_config("qwen2.5-3b")),
-                              n_layers=3)
+def _model(device, arch="qwen2.5-3b", n_layers=3):
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)),
+                              n_layers=n_layers)
     api = get_model(cfg)
     params = api.init_params(torch.Generator(device=device).manual_seed(0),
                              cfg)
@@ -227,3 +230,42 @@ def test_cuda_rebinding_forces_a_new_capture(cuda_model):
         params, api.decode_step(params, fresh(), tok, 0, cfg)[1], tok, 1,
         cfg)[0])
     assert step.captures == 2 and step.replays == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [{}, *POOLS.values()],
+                         ids=["greedy", *POOLS])
+def test_cuda_deepseek_replay_equals_eager(kv):
+    """The smoke deepseek-v2-236b with two MoE layers: ``greedy_decode``
+    (``{}``) and the batcher on each pool, replayed == eager bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph is captured and "
+                    "replayed on the card; the CPU runs the eager step)")
+    cfg, api, params = _model("cuda", "deepseek-v2-236b", n_layers=3)
+    if not kv:
+        tokens = torch.randint(0, cfg.vocab_size, (4, 5), device="cuda",
+                               generator=torch.Generator(device="cuda"
+                                                         ).manual_seed(2))
+        eager = _step_logits(api, params, tokens, cfg, 6, captured=False)
+        replay = _step_logits(api, params, tokens, cfg, 6, captured=True)
+        assert len(eager) == len(replay) == 10
+        for i, (a, b) in enumerate(zip(eager, replay)):
+            assert torch.equal(a, b), f"step {i}"
+        return
+    prompts = _prompts(cfg, [3, 7, 5, 9], seed=6)
+    runs = {}
+    for mode in ("eager", "captured"):
+        cb = ContinuousBatcher(params, cfg, n_slots=3, max_len=24,
+                               record_logits=True, eager=mode == "eager",
+                               **kv)
+        handles = [cb.submit(p, max_new_tokens=5) for p in prompts]
+        runs[mode] = (cb, handles, [h.result(timeout=T) for h in handles])
+        cb.stop_async()
+    cb, handles, outs = runs["captured"]
+    assert cb._graph.captures == 1 and cb._graph.replays == cb.steps_run
+    _, e_handles, e_outs = runs["eager"]
+    assert outs == e_outs
+    for h, e in zip(handles, e_handles):
+        for a, b in zip(h.logits, e.logits):
+            np.testing.assert_array_equal(a, b)

@@ -43,7 +43,13 @@ def test_port_modules_cover_the_slice():
               "repro_torch.core.batching", "repro_torch.models.cache",
               "repro_torch.runtime", "repro_torch.runtime.resilience",
               "repro_torch.launch.serve", "repro_torch.models.lm",
-              "repro_torch.checkpoint", "repro_torch.checkpoint.packed"):
+              "repro_torch.checkpoint", "repro_torch.checkpoint.packed",
+              "repro_torch.models.attention", "repro_torch.models.moe",
+              "repro_torch.configs.deepseek_v2_236b",
+              "repro_torch.configs.granite_moe_1b",
+              "repro_torch.configs.qwen1_5_4b",
+              "repro_torch.configs.qwen3_32b",
+              "repro_torch.configs.command_r_plus_104b"):
         assert m in mods
 
 

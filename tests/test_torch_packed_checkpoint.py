@@ -106,6 +106,42 @@ def test_roundtrip_bit_identical_logits(compiled, tokens, tmp_path):
             assert x.dtype == y.dtype and torch.equal(x, y)
 
 
+def test_deepseek_roundtrip_bit_identical_logits(tmp_path):
+    """The MLA + MoE tree (the prologue list, the stacked expert packs,
+    the router, the shared experts) through ``save_packed`` /
+    ``load_packed``: the same packs and the same logits bits, prefill
+    and two decode steps."""
+    cfg = smoke_variant(get_config("deepseek-v2-236b"))
+    api = get_model(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    cp = codr.compile_params(params, codr.EncodeConfig(n_unique=N_UNIQUE),
+                             backend="codr_matmul", accounting=False,
+                             min_size=256, device="cpu")
+    assert "stack/b0/mlp/router" in cp.packed_paths
+    assert any(p.startswith("prologue/0/") for p in cp.packed_paths)
+    path = str(tmp_path / "deepseek.codr")
+    codr.save_packed(cp, path)
+    cp2 = codr.load_packed(path, device="cpu")
+    assert isinstance(cp2.params["prologue"], list)
+    assert cp2.packed_paths == cp.packed_paths
+    for (pa, a), (pb, b) in zip(cp.packed_leaves(), cp2.packed_leaves()):
+        assert pa == pb and a.weight.bits == b.weight.bits
+        for x, y in zip((a.weight.packed, a.weight.table, a.weight.scale),
+                        (b.weight.packed, b.weight.table, b.weight.scale)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 6)))
+    assert torch.equal(api.prefill(cp.params, {"tokens": tokens}, cfg)[0],
+                       api.prefill(cp2.params, {"tokens": tokens}, cfg)[0])
+    caches = [api.init_cache(cfg, 2, 4, device="cpu") for _ in range(2)]
+    for i in range(2):
+        a, caches[0] = api.decode_step(cp.params, caches[0], tokens[:, i], i,
+                                       cfg)
+        b, caches[1] = api.decode_step(cp2.params, caches[1], tokens[:, i],
+                                       i, cfg)
+        assert torch.equal(a, b)
+
+
 def test_atomic_overwrite(compiled, tmp_path):
     path = _saved(compiled, tmp_path)
     codr.save_packed(compiled[2], path)        # overwrite is clean

@@ -13,7 +13,11 @@ JAX reference, mirroring ``tests/test_paged_kv.py``:
   1)`` of JAX's in every KV mode (the bound of
   ``tests/test_torch_serve.py``), and equal ``kv_bytes``.
 
-The smoke variant of qwen2.5-3b, params made by JAX and carried over.
+The smoke variant of qwen2.5-3b, params made by JAX and carried over;
+the MLA lane (``(ckv, krot)`` pages of features ``(kv_lora_rank,)`` and
+``(rope_head_dim,)``) on the smoke variant of deepseek-v2-236b, whose
+prologue layer pages as well as its stack (mirrors of
+``tests/test_paged_kv.py``'s MLA cases).
 """
 import pathlib
 
@@ -34,6 +38,7 @@ from repro_torch.core.batching import ContinuousBatcher
 from repro_torch.models import cache, get_model
 
 ARCH = "qwen2.5-3b"
+MLA = "deepseek-v2-236b"
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "paged_kv_int8.npz"
 T = 120
 
@@ -42,6 +47,16 @@ T = 120
 def setup():
     jcfg = jsmoke(jget_config(ARCH))
     tcfg = smoke_variant(get_config(ARCH))
+    jparams = jget_model(jcfg).init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = convert.params_from_reference(
+        jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+@pytest.fixture(scope="module")
+def mla_setup():
+    jcfg = jsmoke(jget_config(MLA))
+    tcfg = smoke_variant(get_config(MLA))
     jparams = jget_model(jcfg).init_params(jax.random.PRNGKey(0), jcfg)
     tparams = convert.params_from_reference(
         jax.tree.map(np.asarray, jparams), "cpu")
@@ -244,6 +259,65 @@ def test_int8_paged_teacher_forced_within_bound(setup):
     spread = float(ref_rows.max() - ref_rows.min())
     dev = float(np.abs(got_rows - ref_rows).max()) / spread
     assert dev < 0.10, dev
+
+
+def test_mla_bf16_paged_bit_identical_to_dense(mla_setup):
+    """MLA's ``(ckv, krot)`` pages in bf16 reproduce the dense cache:
+    the same tokens and, teacher-forced, the same logits bits."""
+    *_, cfg, params = mla_setup
+    prompt = _prompt(6, cfg.vocab_size)
+    dense = ContinuousBatcher(params, cfg, n_slots=2, max_len=32,
+                              device="cpu")
+    paged = ContinuousBatcher(params, cfg, n_slots=2, max_len=32,
+                              kv_dtype="bf16", kv_page_size=4, device="cpu")
+    pool = paged._pool
+    for pkv in (*pool["prologue"][0], *pool["stack"]["b0"]):
+        assert isinstance(pkv, cache.PagedKV)
+    assert pool["prologue"][0][0].data.shape[-1] == cfg.kv_lora_rank
+    assert pool["stack"]["b0"][1].data.shape[-1] == cfg.rope_head_dim
+    ref_toks, _ = dense.generate_reference(prompt, max_new_tokens=6)
+    got_toks, _ = paged.generate_reference(prompt, max_new_tokens=6)
+    assert got_toks == ref_toks
+    np.testing.assert_array_equal(paged.replay_logits(prompt, ref_toks),
+                                  dense.replay_logits(prompt, ref_toks))
+
+
+def test_mla_int8_paged_teacher_forced_within_bound(mla_setup):
+    *_, cfg, params = mla_setup
+    prompt = _prompt(6, cfg.vocab_size, seed=1)
+    dense = ContinuousBatcher(params, cfg, n_slots=2, max_len=32,
+                              device="cpu")
+    paged = ContinuousBatcher(params, cfg, n_slots=2, max_len=32,
+                              kv_dtype="int8", kv_page_size=4, device="cpu")
+    ref_toks, _ = dense.generate_reference(prompt, max_new_tokens=6)
+    ref_rows = dense.replay_logits(prompt, ref_toks)
+    got_rows = paged.replay_logits(prompt, ref_toks)
+    np.testing.assert_array_equal(got_rows[0], ref_rows[0])
+    spread = float(ref_rows.max() - ref_rows.min())
+    dev = float(np.abs(got_rows - ref_rows).max()) / spread
+    assert dev < 0.10, dev
+
+
+@pytest.mark.parametrize("mode", ["dense", "bf16-paged", "int8-paged"])
+def test_mla_replay_logits_match_reference(mla_setup, mode):
+    """The MLA pools against JAX's, as ``test_replay_logits_match_
+    reference`` holds the GQA ones: within ``0.02 · max(|JAX|, 1)``, the
+    same pool bytes."""
+    jcfg, jparams, cfg, params = mla_setup
+    kv = {"dense": {}, "bf16-paged": dict(kv_dtype="bf16", kv_page_size=4),
+          "int8-paged": dict(kv_dtype="int8", kv_page_size=4)}[mode]
+    prompt = _prompt(7, cfg.vocab_size, seed=3)
+    toks, _ = JBatcher(jparams, jcfg, n_slots=2,
+                       max_len=24).generate_reference(prompt,
+                                                      max_new_tokens=6)
+    jb = JBatcher(jparams, jcfg, n_slots=2, max_len=24, **kv)
+    tb = ContinuousBatcher(params, cfg, n_slots=2, max_len=24,
+                           device="cpu", **kv)
+    j_rows = jb.replay_logits(prompt, toks)
+    t_rows = tb.replay_logits(prompt, toks)
+    bound = 0.02 * max(float(np.abs(j_rows).max()), 1.0)
+    assert float(np.abs(t_rows - j_rows).max()) <= bound
+    assert tb.kv_bytes() == jb.kv_bytes()
 
 
 def test_int8_pooled_bit_identical_to_int8_solo(setup):

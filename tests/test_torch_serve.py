@@ -201,19 +201,34 @@ def test_run_serve_returns_the_reference_keys(use_codr, capsys):
 
 def test_unported_paths_raise_with_the_roadmap_item(setup):
     jcfg, *_, tcfg, _, tparams, _ = setup
-    with pytest.raises(KeyError, match="A5"):
-        get_config("deepseek-v2-236b")
-    mla = dataclasses.replace(smoke_variant(get_config(ARCH)), use_mla=True)
-    with pytest.raises(NotImplementedError, match="A5"):
-        get_model(mla).init_params(torch.Generator().manual_seed(0), mla)
+    # MLA, MoE and the prologue layer run (deepseek-v2-236b), dense and
+    # paged caches alike
+    mla = smoke_variant(get_config("deepseek-v2-236b"))
+    assert mla.use_mla and mla.n_experts and mla.n_dense_layers
+    mp = get_model(mla).init_params(torch.Generator().manual_seed(0), mla)
+    assert "router" in mp["stack"]["b0"]["mlp"] and len(mp["prologue"]) == 1
+    from repro_torch.models.cache import PagedKV, PagedSpec
+    for paged in (None, PagedSpec(page_size=2, max_len=4, n_slots=1)):
+        cache = get_model(mla).init_cache(mla, 1, 4, paged=paged,
+                                          device="cpu")
+        ckv, krot = cache["prologue"][0]
+        if paged is None:
+            assert tuple(ckv.shape) == (1, 4, mla.kv_lora_rank)
+        else:
+            assert isinstance(krot, PagedKV)
+            assert krot.data.shape[-1] == mla.rope_head_dim
+    # the SSM mixers and the encoder-decoder family wait for A5
+    for kind in ("mamba", "mlstm"):
+        ssm = dataclasses.replace(smoke_variant(get_config(ARCH)),
+                                  block_pattern=(kind,))
+        with pytest.raises(NotImplementedError, match="A5"):
+            get_model(ssm).init_params(torch.Generator().manual_seed(0), ssm)
+        with pytest.raises(NotImplementedError, match="A5"):
+            get_model(ssm).init_cache(ssm, 1, 4, device="cpu")
     encdec = dataclasses.replace(smoke_variant(get_config(ARCH)),
                                  family="encdec")
     with pytest.raises(NotImplementedError, match="A5"):
         get_model(encdec)
-    from repro_torch.models.cache import PagedSpec
-    for paged in (None, PagedSpec(page_size=2, max_len=4, n_slots=1)):
-        with pytest.raises(NotImplementedError, match="A5"):
-            get_model(mla).init_cache(mla, 1, 4, paged=paged, device="cpu")
     cb = ContinuousBatcher(tparams, tcfg, n_slots=1, max_len=8, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         cb.configure_resilience(supervisor=object())
@@ -225,6 +240,27 @@ def test_unported_paths_raise_with_the_roadmap_item(setup):
                               plan={"embed": tcodr.EncodeConfig(n_unique=8)})
     with pytest.raises(NotImplementedError, match="A9"):
         tcodr.save_packed(cp, "never-written.codr")
+
+
+@pytest.mark.parametrize("use_codr", [False, True])
+def test_run_serve_deepseek_returns_the_reference_keys(use_codr, capsys):
+    """``run_serve(arch="deepseek-v2-236b")``: the smoke variant (the
+    prologue MLA layer with its dense MLP, then an MLA + MoE layer)
+    returns the reference's keys and cache bytes."""
+    from repro.launch.serve import run_serve as jrun_serve
+    kw = dict(arch="deepseek-v2-236b", batch=2, prompt_len=4, gen_len=3,
+              use_codr=use_codr, codr_backend="tiled")
+    j = jrun_serve(verbose=False, **kw)
+    t = run_serve(device="cpu", **kw)
+    assert set(t) == set(j)
+    assert t["family"] == j["family"] == "moe"
+    assert t["gen"].shape == j["gen"].shape == (2, 3)
+    assert t["n_decode_steps"] == j["n_decode_steps"] == 6
+    assert t["kv_bytes"] == j["kv_bytes"]
+    assert "prefill 4 toks" in capsys.readouterr().out
+    if use_codr:
+        assert t["n_packed"] == j["n_packed"]
+        assert t["hbm_bytes"] == pytest.approx(j["hbm_bytes"], rel=0.2)
 
 
 def test_entry_points_default_to_the_card():
@@ -314,6 +350,25 @@ def test_serve_continuous_chaos_checked(chaos_seed, capsys):
     assert "scheduled faults fired" in out
     j = jrun(verbose=False, chaos_seed=chaos_seed, check=True, **kw)
     assert set(res) == set(j)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "granite-moe-1b-a400m"])
+def test_serve_cli_moe_archs(arch, capsys):
+    """``python -m repro_torch.launch.serve --arch ARCH`` for the MoE
+    archs (smoke variants, as the reference's CLI): the continuous
+    batcher checked against the solo reference on the dense and the
+    int8 paged pools, and the batch-serve loop from packed weights."""
+    from repro_torch.launch.serve import main
+    common = ["--arch", arch, "--device", "cpu", "--prompt-len", "4",
+              "--gen-len", "3"]
+    for extra in ([], ["--kv-dtype", "int8"]):
+        main(common + ["--continuous", "--check", "--codr", "--requests",
+                       "3", "--slots", "2"] + extra)
+        assert "check: 3/3" in capsys.readouterr().out
+    main(common + ["--batch", "2", "--codr"])
+    assert "measured on the packed representation" in \
+        capsys.readouterr().out
 
 
 def test_serve_cli_runs_continuous_chaos_packed_check(tmp_path, capsys):
