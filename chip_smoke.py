@@ -73,6 +73,18 @@ models through the port's servers and its checkpoint:
   checkpoint at its smoke
   size.
 
+Then the per-layer encoding search (``repro_torch.tune``): VGG16's
+spec searched by ``tune_spec`` (``max_rel_err`` 0.03, sampled grid) and
+compiled on ``smm_kernel`` beside the best global config over the same
+table (each tuned layer's ``smm_conv`` equal to plain, the request within
+5% of ``tiled``'s range, the plan's predicted SRAM no worse than the
+global config's); the CLI's ``--small --check`` on the card and its
+defaults; and qwen2.5-3b at its published widths under a ``tune_params``
+plan whose budget mixes bit widths, served by ``run_serve``'s loop
+(replayed == eager, within the f32 lane bound of ``tiled``, launches
+held by instance and by bits) and booted from its packed checkpoint with
+the plan.
+
 Last, with qwen's packs freed, deepseek-v2-236b at its published widths
 (MLA, 160 routed experts top-6 + 2 shared, the dense prologue layer),
 depth cut 60 -> 3 (the prologue and two MoE layers), ~9.3 B parameters
@@ -252,45 +264,119 @@ def cudnn_tf32():
          torch.backends.cudnn.benchmark) = saved
 
 
-def _device_us(e) -> float:
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
-
-
 # ---------------------------------------------------------------------------
 # path 1: CNN inference on smm_conv (VGG16 conv1_1 .. conv3_3)
 # ---------------------------------------------------------------------------
 
-def _profile(fn, name: str, names) -> dict:
+def _profile(fn, name: str, names, warmup=None) -> dict:
     """One call of ``fn`` (ending in a synchronize) under
     ``torch.profiler``: wall time, device-busy time and idle share, the
     share of the kernels whose name matches ``names`` (as ``<name>_ms``
     and ``<name>_launches``), all kernels, and the host's op time.  The
-    profiler adds host time of its own."""
+    profiler adds host time of its own.  ``warmup`` runs first in the
+    same trace and is not counted: the first moments of a trace's device
+    activity can go unrecorded (on the H100, the first 7 to ~3,400
+    kernels of a window of CUDA-graph replays, from its first replay).
+    The warm-up makes the loss rarer but does not end it, so the kernel
+    counts here are a measurement, not a gate: what a graph's replays
+    launch is counted from the graph (``_graph_kernels``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    mark = "chip_smoke.window"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # device kernels only: an op's row repeats its kernels' time
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device = sum(_device_us(e) for e in kernels) / 1e3
-    named = [e for e in kernels if names.search(e.key)]
+        if warmup is not None:
+            warmup()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        with record_function(mark):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # what starts after the mark, less 1 ms for the alignment of the
+    # device's clock to the host's; the warm-up ended 5 ms before it
+    start = min(e.time_range.start for e in events if e.name == mark
+                and e.device_type == DeviceType.CPU) - 1000
+    events = [e for e in events
+              if e.time_range.start >= start and e.name != mark]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        row = by_name.setdefault(e.name, [e.name[:60], 0.0, 0])
+        row[1] += e.time_range.elapsed_us() / 1e3
+        row[2] += 1
+    device = sum(r[1] for r in by_name.values())
+    named = [r for key, r in by_name.items() if names.search(key)]
     out = {"wall_ms": wall, "device_busy_ms": device,
-           f"{name}_ms": sum(_device_us(e) for e in named) / 1e3,
-           f"{name}_launches": sum(e.count for e in named),
-           "device_kernels": sum(e.count for e in kernels),
-           "host_op_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
-           "top": sorted(([e.key[:60], _device_us(e) / 1e3, e.count]
-                          for e in kernels), key=lambda r: -r[1])[:6]}
+           f"{name}_ms": sum(r[1] for r in named),
+           f"{name}_launches": sum(r[2] for r in named),
+           "device_kernels": len(kernels),
+           "host_op_ms": sum(e.self_cpu_time_total for e in events
+                             if e.device_type == DeviceType.CPU) / 1e3,
+           "top": sorted(by_name.values(), key=lambda r: -r[1])[:6]}
     out["idle"] = ("not measured (no device events)" if device == 0 else
                    f"{max(0.0, 1 - device / wall):.3f}")
     return out
+
+
+@contextlib.contextmanager
+def _kept_graphs():
+    """CUDA graphs captured inside keep their ``cudaGraph_t`` (torch's
+    ``keep_graph=True``: the first replay instantiates, where
+    ``capture_end`` would have), so that ``_graph_kernels`` can list what
+    a replay launches."""
+    import torch
+    base = torch.cuda.CUDAGraph
+
+    class Kept(base):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+def _graph_kernels(graph, names) -> int:
+    """The kernel nodes of ``graph`` (captured under ``_kept_graphs``)
+    whose function name matches ``names``: the kernels every replay
+    launches.  Read from the graph itself (``libcuda``), since the
+    profiler can lose the records of a few kernels of a window of
+    replays (on the H100: 3 to 255 of 1,302 to 15,624)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def call(fn, *a) -> None:
+        rc = getattr(cu, fn)(*a)
+        if rc:
+            fail(f"{fn} returned CUresult {rc}")
+    g, n = vp(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    call("cuGraphGetNodes", g, None, ctypes.byref(n))
+    nodes = (vp * n.value)()
+    call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+    count = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", vp(node), ctypes.byref(kind))
+        if kind.value != 0:                   # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (vp * 16)()                  # CUDA_KERNEL_NODE_PARAMS_v2
+        call("cuGraphKernelNodeGetParams_v2", vp(node), params)
+        if not params[0]:
+            fail("a kernel node of the graph has no CUfunction")
+        name = ctypes.c_char_p()
+        call("cuFuncGetName", ctypes.byref(name), vp(params[0]))
+        count += bool(names.search(name.value.decode()))
+    return count
 
 
 def _say_profile(label: str, out: dict, name: str) -> None:
@@ -307,6 +393,22 @@ def _profile_request(compiled, x) -> dict:
     out = _profile(lambda: compiled.run(x), "smm_conv", SMM_KERNEL_NAMES)
     _say_profile("cnn profile, one steady request", out, "smm_conv")
     return out
+
+
+def _smm_rule(compiled, batch: int, hw) -> list:
+    """The instance ``smm_conv.ops.pick_impl`` names for each layer's
+    call in a request of ``batch`` images of ``hw``."""
+    from repro_torch.kernels.smm_conv import ops
+    rule, (ri, ci) = [], hw
+    for layer in compiled.model.layers:
+        deltas, _, meta = layer.smm_operands()
+        ro, co = layer.out_hw(ri, ci)
+        rule.append(ops.pick_impl(
+            (batch, layer.code.shape[1], ri, ci), tuple(deltas.shape),
+            t_m=meta["t_m"], ro=ro, co=co, stride=layer.stride,
+            int8_weights=meta["int8_weights"]))
+        ri, ci = ro, co
+    return rule
 
 
 def cnn_path(args) -> dict:
@@ -371,15 +473,7 @@ def cnn_path(args) -> dict:
             fail(f"output {tuple(y.shape)} not finite {out_shape}")
 
     # the routing rule at each layer's main-path call
-    rule, ri, ci = [], 226, 226
-    for layer in compiled.model.layers:
-        deltas, _, meta = layer.smm_operands()
-        ro, co = layer.out_hw(ri, ci)
-        rule.append(ops.pick_impl(
-            (batch, layer.code.shape[1], ri, ci), tuple(deltas.shape),
-            t_m=meta["t_m"], ro=ro, co=co, stride=layer.stride,
-            int8_weights=meta["int8_weights"]))
-        ri, ci = ro, co
+    rule = _smm_rule(compiled, batch, (226, 226))
     want = {i: rule.count(i) for i in ops.IMPLS}
     say(f"cnn launches by instance: per request {per_request}, in all "
         f"{by_impl}; the rule names {rule} per request")
@@ -648,19 +742,25 @@ def _profile_replay(api, params, cfg, tokens, gen_len, per_forward: int,
     steps run back to back (each feeds the next its token on the device;
     one sync at the end): once timed on the host clock, then again under
     ``torch.profiler``, which gives the device-busy time and idle share
-    of that window and counts the ``codr_matmul`` kernels the replays
-    launched.  The wrapper's counters must not move in the window."""
+    of that window and counts the ``codr_matmul`` kernels it recorded
+    (the window runs once more first, inside the same trace, as its
+    warm-up).  What the replays launched is counted from the graph: its
+    ``codr_matmul`` kernel nodes must be ``per_forward``, the profiler's
+    count no more than ``per_forward`` a replay, and the wrapper's
+    counters must not move in the window."""
     import torch
 
     from repro_torch.kernels.codr_matmul import ops
     from repro_torch.models.lm import CapturedDecode
     batch, prompt_len = tokens.shape
     total = prompt_len + gen_len
-    step = CapturedDecode(params, api.init_cache(cfg, batch, total,
-                                                 device=tokens.device),
-                          cfg, batch)
-    step(tokens[:, 0], 0)             # the warm-up, the capture, a replay
+    with _kept_graphs():
+        step = CapturedDecode(params, api.init_cache(cfg, batch, total,
+                                                     device=tokens.device),
+                              cfg, batch)
+        step(tokens[:, 0], 0)         # the warm-up, the capture, a replay
     torch.cuda.synchronize()
+    in_graph = _graph_kernels(step.graph, MM_KERNEL_NAMES)
 
     def window():
         tok = tokens[:, 1]
@@ -674,24 +774,30 @@ def _profile_replay(api, params, cfg, tokens, gen_len, per_forward: int,
     window()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
-    out = _profile(window, "codr_matmul", MM_KERNEL_NAMES)
+    out = _profile(window, "codr_matmul", MM_KERNEL_NAMES, warmup=window)
     out.update(replays=n, host_clock_ms_per_step=host_ms / n,
                profiled_ms_per_step=out["wall_ms"] / n,
-               device_busy_ms_per_step=out["device_busy_ms"] / n)
+               device_busy_ms_per_step=out["device_busy_ms"] / n,
+               graph_codr_matmul_kernels=in_graph,
+               replayed_launches=in_graph * n,
+               profiler_missed=in_graph * n - out["codr_matmul_launches"])
     _say_profile(f"{label} profile, {n} replayed steps back to back (one "
                  f"sync at the end) [{SMI}]", out, "codr_matmul")
     say(f"{label} replay window: {host_ms / n:.3f} ms/step on the host clock "
         f"unprofiled, {out['profiled_ms_per_step']:.3f} ms/step profiled, "
         f"device busy {out['device_busy_ms_per_step']:.3f} ms/step, idle "
-        f"share {out['idle']}; the profiler counted "
-        f"{out['codr_matmul_launches']} codr_matmul kernels over {n} "
-        f"replays ({per_forward} a replay expected), the wrapper's counters "
-        f"moved {ops.launches - counted[0]} / {ops.captured - counted[1]}")
-    if out["codr_matmul_launches"] != per_forward * n or \
-            (ops.launches, ops.captured) != counted:
-        fail(f"{label}: replays launched {out['codr_matmul_launches']} "
-             f"codr_matmul kernels, expected {per_forward} x {n}, or a "
-             f"counter moved")
+        f"share {out['idle']}; the graph holds {in_graph} codr_matmul "
+        f"kernels ({per_forward} expected), so {n} replays launched "
+        f"{in_graph * n}; the profiler recorded "
+        f"{out['codr_matmul_launches']} of them (missed "
+        f"{out['profiler_missed']}); the wrapper's counters moved "
+        f"{ops.launches - counted[0]} / {ops.captured - counted[1]}")
+    if in_graph != per_forward or (ops.launches, ops.captured) != counted \
+            or not 0 < out["codr_matmul_launches"] <= per_forward * n:
+        fail(f"{label}: the graph holds {in_graph} codr_matmul kernels, "
+             f"expected {per_forward}; the profiler recorded "
+             f"{out['codr_matmul_launches']} over {n} replays; or a counter "
+             f"moved")
     return out
 
 
@@ -1630,7 +1736,8 @@ def batcher_phase(args, packs, cfg) -> dict:
     # the main path: the dense pool, captured
     ops.launches = ops.captured = 0
     ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
-    main = _batcher_run(packs, cfg, prompts, ops, eager=False)
+    with _kept_graphs():
+        main = _batcher_run(packs, cfg, prompts, ops, eager=False)
     launches, by_impl = ops.launches, dict(ops.launches_by_impl)
     captured = ops.captured
     cb = main["cb"]
@@ -1654,7 +1761,7 @@ def batcher_phase(args, packs, cfg) -> dict:
         f"(the warm-up step), in all {launches}; routing predicts "
         f"{want_pre} / {want_dec}; {captured} calls recorded at the "
         f"capture; {graph.replays} replays, which call no wrapper (the "
-        f"profile below counts one replay's kernels)")
+        f"graph's kernel nodes are counted below)")
     if (pre != want_pre or dec != want_dec or graph.captures != 1
             or captured != per_forward or graph.replays != cb.steps_run
             or launches != per_forward * (len(BATCH_LENS) + 1)):
@@ -1727,10 +1834,15 @@ def batcher_phase(args, packs, cfg) -> dict:
                                        "codr_matmul", MM_KERNEL_NAMES)
     _say_profile(f"batcher profile, one pooled step (dense pool, replayed) "
                  f"[{SMI}]", profs["dense replayed"], "codr_matmul")
-    if profs["dense replayed"]["codr_matmul_launches"] != per_forward:
-        fail(f"batcher: one replay launched "
-             f"{profs['dense replayed']['codr_matmul_launches']} codr_matmul "
-             f"kernels, expected {per_forward}")
+    in_graph = _graph_kernels(graph.graph, MM_KERNEL_NAMES)
+    recorded = profs["dense replayed"]["codr_matmul_launches"]
+    say(f"batcher: the pooled step's graph holds {in_graph} codr_matmul "
+        f"kernels ({per_forward} expected); the profiler recorded "
+        f"{recorded} in the replay")
+    if in_graph != per_forward or not 0 < recorded <= per_forward:
+        fail(f"batcher: the pooled step's graph holds {in_graph} codr_matmul "
+             f"kernels and the profiler recorded {recorded} in one replay, "
+             f"expected {per_forward}")
 
     # int8 paged pool, teacher-forced through the dense tokens
     int8 = runs["int8 paged"]["captured"]["cb"]
@@ -1890,7 +2002,372 @@ def checkpoint_phase(args, packs, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: deepseek-v2-236b serving on codr_matmul (MLA, MoE, prologue)
+# phase 6: the per-layer encoding search (repro_torch.tune) on the card
+# ---------------------------------------------------------------------------
+
+# the transformer lane's U grid (tune_params' default) and run_serve's
+# loop, cut to 8 new tokens
+TUNE_US = (4, 8, 16, 32, 64)
+TUNE_BATCH, TUNE_PROMPT, TUNE_GEN = 4, 32, 8
+
+
+def _requests(compiled, images) -> list:
+    """``compiled.run`` on each image batch: ``[(output, ms)]``."""
+    import torch
+    out = []
+    for x in images:
+        t0 = time.perf_counter()
+        y = compiled.run(x)
+        torch.cuda.synchronize()
+        out.append((y, (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def _pick_budget(rel: dict) -> float:
+    """A ``max_rel_err`` from the per-leaf table ``rel[U][path]`` under
+    which ``tune_params``' pick (the smallest U within the budget, else
+    the least lossy) mixes the most bit widths, the smallest such budget
+    (the least error) first: midpoints between neighbouring table
+    values, so no leaf sits at the budget's edge.  0.2 (the budget of
+    ``tests/test_tune.py``) when no budget mixes widths."""
+    from repro_torch.core.codr_linear import choose_bits
+    us = sorted(rel)
+    values = sorted({v for col in rel.values() for v in col.values()})
+    best = None
+    for lo, hi in zip(values, values[1:]):
+        b = (lo + hi) / 2
+        widths = set()
+        for p in rel[us[0]]:
+            fit = [u for u in us if rel[u][p] <= b]
+            widths.add(choose_bits(fit[0] if fit else
+                                   min(us, key=lambda u: rel[u][p])))
+        if len(widths) > 1 and (best is None or len(widths) > best[0]):
+            best = (len(widths), b)
+    return 0.2 if best is None else best[1]
+
+
+def tune_phase(args, cnn_row: dict, packs) -> tuple:
+    """The per-layer encoding search through the entry points a user
+    calls, on the card: (a) VGG16 conv1_1..conv3_3 tuned with
+    ``tune_spec`` against the best global config, both compiled on
+    ``smm_kernel``; (b) the CLI gate ``repro_torch.launch.tune --small
+    --check``, then ``run_tune`` at the CLI's defaults;
+    (c) qwen2.5-3b at its published widths tuned with ``tune_params``,
+    compiled on ``codr_matmul`` and served by ``run_serve``'s loop, its
+    packed checkpoint booted.  Returns the phase's parts of the
+    ``smm_conv`` and ``codr_matmul`` rows."""
+    import collections
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.api as codr
+    from repro_torch import tune
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_cnns import VGG16
+    from repro_torch.core.backends import _int_activations
+    from repro_torch.core.engine import full_fp32
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.codr_matmul import ops as mm_ops
+    from repro_torch.kernels.smm_conv import ops, ref
+    from repro_torch.launch import tune as tune_cli
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import get_model
+
+    # -- (a) the CNN lane: the paper's search on cnn_path's spec ------------
+    hw, batch = (226, 226), 4
+    spec = codr.ModelSpec.from_shapes(VGG16[:7], None, density=0.4,
+                                      rng=np.random.default_rng(args.seed))
+    budget = tune.TuneBudget(max_rel_err=0.03)
+    grid = tune.TuneGrid(max_vectors=2000)
+    tune.clear_cache()
+    t0 = time.perf_counter()
+    plan = tune.tune_spec(spec, hw, budget=budget, grid=grid)
+    search_s = time.perf_counter() - t0
+    table = tune.layer_candidate_table(spec, hw, grid=grid)
+    gcfg, gpred = tune.best_global_config(table, budget=budget, grid=grid)
+    say(f"tune cnn: VGG16 conv1_1..conv3_3 (cnn_path's spec, seed "
+        f"{args.seed}), input {hw}, budget {budget.as_dict()}, grid "
+        f"max_vectors {grid.max_vectors}: search {search_s:.2f} s on the "
+        f"host ({len(plan)} layers x {len(grid.n_uniques)} U x "
+        f"{len(grid.t_ms_conv)} t_m; cache {tune.cache_stats()}); best "
+        f"global config {gcfg.metadata()}")
+    say(plan.table())
+    t0 = time.perf_counter()
+    tuned = codr.compile(spec, plan=plan, backend="smm_kernel",
+                         device="cuda")
+    glob = codr.compile(spec, gcfg, backend="smm_kernel", device="cuda")
+    encode_s = time.perf_counter() - t0
+    say(tuned.layer_table(hw))
+    img_rng = np.random.default_rng(args.seed + 1)
+    images = [img_rng.integers(0, 256, size=(batch, *hw, 3)).astype(
+        np.float32) for _ in range(3)]
+    rules = {"tuned": _smm_rule(tuned, batch, hw),
+             "global": _smm_rule(glob, batch, hw)}
+    ops.launches = 0
+    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+    runs = {"tuned": _requests(tuned, images),
+            "global": _requests(glob, images)}
+    cnn_launches, cnn_by_impl = ops.launches, dict(ops.launches_by_impl)
+    want = collections.Counter(r for rule in rules.values() for r in rule)
+    want = {i: want[i] * len(images) for i in ops.IMPLS}
+    say(f"tune cnn smm_conv launches {cnn_launches}, by instance "
+        f"{cnn_by_impl}; the rule names per request {rules}")
+    if cnn_launches != 2 * len(spec) * len(images) or cnn_by_impl != want:
+        fail(f"tune cnn: smm_conv launched {cnn_launches} / {cnn_by_impl}, "
+             f"the routing rule gives {want}")
+    for name, run in runs.items():
+        for y, _ in run:
+            if tuple(y.shape) != (batch, 212, 212, 256) or \
+                    not bool(torch.isfinite(y).all()):
+                fail(f"tune cnn {name}: output {tuple(y.shape)} not finite")
+    # every tuned layer's call on request 0 against the plain version
+    x = tuned.model.as_input(images[0])
+    ri, ci = hw
+    layers = []
+    for layer, impl in zip(tuned.model.layers, rules["tuned"]):
+        deltas, entries, meta = layer.smm_operands()
+        ro, co = layer.out_hw(ri, ci)
+        xi, _ = _int_activations(x)
+        xin = xi.permute(0, 3, 1, 2).contiguous()
+        kw = dict(t_m=meta["t_m"], ro=ro, co=co, stride=layer.stride)
+        err = float((ops.smm_conv_cuda(xin, deltas, entries,
+                                       int8_weights=meta["int8_weights"],
+                                       **kw)
+                     - ref.smm_conv_plain(xin, deltas, entries, **kw)
+                     ).abs().max())
+        st = layer.stats()
+        layers.append({"layer": layer.name, "impl": impl,
+                       "n_unique": st.n_unique_budget, "t_m": meta["t_m"],
+                       "deltas": list(deltas.shape), "max_abs_err": err})
+        if err != 0.0:
+            fail(f"tune cnn {layer.name} (U {st.n_unique_budget}, t_m "
+                 f"{meta['t_m']}): {impl} vs plain max-abs-diff {err}")
+        x = tuned.backend.conv(layer, x)
+        ri, ci = ro, co
+    if not torch.equal(x, runs["tuned"][0][0]):
+        fail("tune cnn: layer-by-layer replay differs from the request")
+    say("tune cnn per layer [layer, instance, U, t_m, deltas shape, "
+        "max-abs-diff vs plain]: " + "; ".join(
+            f"{r['layer']} {r['impl']} U{r['n_unique']} t_m {r['t_m']} "
+            f"{r['deltas']} {r['max_abs_err']}" for r in layers))
+    y_tiled = tuned.run(images[0], backend="tiled")
+    rel_tiled = float((runs["tuned"][0][0] - y_tiled).abs().max()) / float(
+        y_tiled.abs().max())
+    if not rel_tiled <= E2E_REL_TOL:
+        fail(f"tune cnn: smm_kernel vs tiled rel err {rel_tiled} > "
+             f"{E2E_REL_TOL}")
+    if not plan.predicted_total_sram() <= gpred["sram"]:
+        fail(f"tune cnn: plan's predicted SRAM "
+             f"{plan.predicted_total_sram()} > global {gpred['sram']}")
+    steady = {name: [ms for _, ms in run[1:]] for name, run in runs.items()}
+    u16 = cnn_row["main_path"]["request_ms"][1:]
+    cnn = {"launches": cnn_launches, "launches_by_impl": cnn_by_impl,
+           "search_s": search_s, "encode_s": encode_s,
+           "global_config": gcfg.metadata(), "layers": layers,
+           "bits_per_weight": {"tuned": tuned.bits_per_weight(),
+                               "global": glob.bits_per_weight(),
+                               "tuned_pred": plan.predicted_bits_per_weight(),
+                               "global_pred": gpred["bits_per_weight"]},
+           "pred_sram": {"tuned": plan.predicted_total_sram(),
+                         "global": gpred["sram"]},
+           "request_ms": {name: [ms for _, ms in run]
+                          for name, run in runs.items()},
+           "smm_vs_tiled_rel_err": rel_tiled}
+    say(f"tune cnn: bits/weight tuned {cnn['bits_per_weight']['tuned']:.4f} "
+        f"(pred {cnn['bits_per_weight']['tuned_pred']:.4f}), global "
+        f"{cnn['bits_per_weight']['global']:.4f} (pred "
+        f"{cnn['bits_per_weight']['global_pred']:.4f}); predicted SRAM tuned "
+        f"{plan.predicted_total_sram():.6e} <= global {gpred['sram']:.6e}; "
+        f"smm_kernel vs tiled rel err {rel_tiled:.6f} (tolerance "
+        f"{E2E_REL_TOL}); "
+        f"encode of both {encode_s:.2f} s; steady request ms (batch {batch}) "
+        f"tuned {steady['tuned']}, global {steady['global']}, cnn_path's U "
+        f"16 {u16} [{SMI}]")
+    del tuned, glob, runs, x, y_tiled
+    torch.cuda.empty_cache()
+
+    # -- (b) the CLI on the card: the reference's CI gate (--small
+    # --check), then its defaults (3 conv layers, 28x28), where the
+    # reference's own top-1 condition fails (tuned 0.9375 < global
+    # 0.96875 on the CPU, both packages alike): there bits/weight and
+    # predicted SRAM are held, and the top-1 condition is printed
+    t0 = time.perf_counter()
+    try:
+        tune_cli.main(["--small", "--check"])
+    except AssertionError as e:
+        fail(f"tune --small --check: {e}")
+    cnn["cli_s"] = time.perf_counter() - t0
+    res = tune_cli.run_tune(n_conv=3, input_hw=(28, 28), verbose=False)
+    t, g = res["tuned"], res["global"]
+    if t["bits_per_weight"] > g["bits_per_weight"] or \
+            t["predicted_sram"] > g["predicted_sram"]:
+        fail(f"tune cli defaults: tuned {t} worse than global {g}")
+    try:
+        tune_cli.check_result(res)
+        verdict = "passes"
+    except AssertionError as e:
+        verdict = f"fails, as the reference's does at these defaults: {e}"
+    cnn["cli_defaults"] = {"tuned": t, "global": g, "check": verdict}
+    say(f"tune cli: python -m repro_torch.launch.tune --small --check "
+        f"passed in {cnn['cli_s']:.2f} s; at the defaults (3 conv, 28x28) "
+        f"bits/weight tuned {t['bits_per_weight']:.6f} <= global "
+        f"{g['bits_per_weight']:.6f}, predicted SRAM "
+        f"{t['predicted_sram']:.1f} <= {g['predicted_sram']:.1f}, top-1 "
+        f"{t['top1_match']} vs {g['top1_match']}; --check {verdict}")
+
+    # -- (c) the transformer lane: qwen2.5-3b at its published widths ------
+    cfg = get_config("qwen2.5-3b")
+    api = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = api.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (TUNE_BATCH, TUNE_PROMPT),
+                           generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rel = {u: {p: lp.rel_err for p, lp in tune.tune_params(
+        params, n_uniques=(u,), budget=tune.TuneBudget(max_rel_err=None)
+    ).layers.items()} for u in TUNE_US}
+    table_s = time.perf_counter() - t0
+    paths = list(rel[TUNE_US[0]])
+    say(f"tune lm: {cfg.name} at its published widths (seed {args.seed}); "
+        f"per-leaf rel_err at U {TUNE_US} ({table_s:.2f} s): " + "; ".join(
+            f"{p.split('/')[-1]} " + " ".join(f"{rel[u][p]:.5f}"
+                                              for u in TUNE_US)
+            for p in paths))
+    max_rel_err = _pick_budget(rel)
+    t0 = time.perf_counter()
+    lm_plan = tune.tune_params(params, n_uniques=TUNE_US,
+                               budget=tune.TuneBudget(
+                                   max_rel_err=max_rel_err))
+    lm_search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cp = codr.compile_params(params, codr.EncodeConfig(n_unique=16),
+                             plan=lm_plan, backend="codr_matmul",
+                             accounting=False, device="cuda")
+    torch.cuda.synchronize()
+    lm_encode_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    leaf_bits = {p: leaf.weight.bits for p, leaf in cp.packed_leaves()}
+    per_bits = collections.Counter(leaf_bits[p] for p in lm_plan.layers)
+    say(f"tune lm: max_rel_err {max_rel_err!r} (chosen from the table: the "
+        f"most bit widths, then the least error); tune_params {lm_search_s:.2f}"
+        f" s, compile_params {lm_encode_s:.2f} s; plan U "
+        f"{ {p.split('/')[-1]: lp.config.n_unique for p, lp in lm_plan.layers.items()} }; "
+        f"projection leaves per bit width {dict(sorted(per_bits.items()))}, "
+        f"embedding {leaf_bits.get('embed')} bits (unnamed leaves at U 16); "
+        f"packed {cp.hbm_bytes()} bytes vs the flat U 16 compile "
+        f"{packs.hbm_bytes()} ({cp.hbm_bytes() / packs.hbm_bytes():.4f}x), "
+        f"{cp.bits_per_weight():.4f} vs {packs.bits_per_weight():.4f} "
+        f"bits/weight")
+    if len(per_bits) < 2:
+        fail(f"tune lm: the plan has one bit width ({dict(per_bits)}) at "
+             f"max_rel_err {max_rel_err}")
+    per_forward = 7 * cfg.n_layers
+    want_bits = dict.fromkeys(mm_ops.BITS, 0)
+    for p in lm_plan.layers:
+        want_bits[leaf_bits[p]] += 2 * cfg.n_layers   # prefill + warm-up
+    mm_ops.launches = mm_ops.captured = 0
+    mm_ops.launches_by_impl.update(dict.fromkeys(mm_ops.IMPLS, 0))
+    mm_ops.launches_by_bits.update(dict.fromkeys(mm_ops.BITS, 0))
+    t0 = time.perf_counter()
+    logits, _ = api.prefill(cp.params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, _, n_steps = greedy_decode(api, cp.params, tokens, cfg, TUNE_GEN)
+    torch.cuda.synchronize()
+    lm = {"launches": mm_ops.launches,
+          "launches_by_impl": dict(mm_ops.launches_by_impl),
+          "launches_by_bits": {b: n for b, n in
+                               mm_ops.launches_by_bits.items() if n},
+          "captured": mm_ops.captured}
+    want_impl = dict.fromkeys(mm_ops.IMPLS, 0)
+    for p in lm_plan.layers:
+        for m in (TUNE_BATCH * TUNE_PROMPT, TUNE_BATCH):
+            want_impl[mm_ops.pick_impl(m, leaf_bits[p])] += cfg.n_layers
+    say(f"tune lm main path: prefill {prefill_ms:.3f} ms, {n_steps} decode "
+        f"steps; codr_matmul launches {lm['launches']} by instance "
+        f"{lm['launches_by_impl']} (the rule gives {want_impl}), by bits "
+        f"{lm['launches_by_bits']}; {lm['captured']} recorded at the "
+        f"capture")
+    if lm["launches"] != 2 * per_forward or lm["captured"] != per_forward \
+            or lm["launches_by_impl"] != want_impl \
+            or lm["launches_by_bits"] != {b: n for b, n in want_bits.items()
+                                          if n}:
+        fail(f"tune lm: codr_matmul counts {lm}, expected {2 * per_forward} "
+             f"launches as {want_impl} / {want_bits} and {per_forward} "
+             f"captured")
+    if tuple(logits.shape) != (TUNE_BATCH, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits.float()).all()) or \
+            tuple(out.shape) != (TUNE_BATCH, TUNE_GEN):
+        fail(f"tune lm: logits {tuple(logits.shape)} / tokens "
+             f"{tuple(out.shape)} malformed or not finite")
+    out_eager, _, _ = greedy_decode(api, cp.params, tokens, cfg, TUNE_GEN,
+                                    eager=True)
+    if not torch.equal(out, out_eager):
+        fail("tune lm: the replayed loop's tokens differ from the eager's")
+    eager = _step_logits(api, cp.params, tokens, cfg, TUNE_GEN,
+                         captured=False)
+    replay = _step_logits(api, cp.params, tokens, cfg, TUNE_GEN,
+                          captured=True)
+    for i, (a, b) in enumerate(zip(eager, replay)):
+        if not torch.equal(a, b):
+            fail(f"tune lm: decode step {i}: replayed logits differ from "
+                 f"eager")
+    del eager, replay
+    lm["profile"] = _profile_replay(api, cp.params, cfg, tokens, TUNE_GEN,
+                                    per_forward, label="tune lm")
+    tiled = _rebind(cp.params, "tiled")
+    with full_fp32():
+        f32 = {lane: _teacher_forced(api, p, cfg, tokens, torch.float32)
+               for lane, p in (("codr_matmul", cp.params),
+                               ("tiled", tiled))}
+    lane_err = 0.0
+    for i, (a, b) in enumerate(zip(f32["codr_matmul"], f32["tiled"])):
+        what = "prefill" if i == 0 else f"decode step {i - 1}"
+        lane_err = max(lane_err, _lane_check(a, b, f"tune lm {what} "
+                                                   f"(float32)"))
+    del f32, tiled
+    # the packed checkpoint keeps the plan and boots to the same bits
+    tmp = tempfile.mkdtemp(prefix="tune-", dir=_build.BUILD_DIR)
+    try:
+        path = os.path.join(tmp, "qwen2.5-3b-tuned.codr")
+        codr.save_packed(cp, path)
+        loaded = codr.load_packed(path, mmap=True)
+        if loaded.plan is None or loaded.plan.to_json() != lm_plan.to_json():
+            fail("tune lm: the checkpoint's plan differs from the plan saved")
+        want_lg = _teacher_forced(api, cp.params, cfg, tokens,
+                                  torch.bfloat16)
+        got_lg = _teacher_forced(api, loaded.params, cfg, tokens,
+                                 torch.bfloat16)
+        for i, (a, b) in enumerate(zip(want_lg, got_lg)):
+            if not torch.equal(a, b):
+                fail(f"tune lm: logits {i} differ after the checkpoint")
+        del loaded, want_lg, got_lg
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        fail(f"tune lm: {tmp} was not deleted")
+    lm.update(max_rel_err=max_rel_err, rel_err_table=rel,
+              leaves_per_bits=dict(per_bits), prefill_ms=prefill_ms,
+              packed_bytes=cp.hbm_bytes(), flat_u16_bytes=packs.hbm_bytes(),
+              lane_vs_tiled_max_abs_err_f32=lane_err,
+              ms_per_step=lm["profile"]["host_clock_ms_per_step"],
+              search_s=lm_search_s, encode_s=lm_encode_s)
+    say(f"tune lm: replayed == eager at all {n_steps} steps, float32 lane "
+        f"vs tiled {lane_err:.6f}, checkpoint plan and logits bits equal; "
+        f"{lm['ms_per_step']:.3f} ms/step replayed (batch {TUNE_BATCH}) "
+        f"[{SMI}]")
+    del cp
+    torch.cuda.empty_cache()
+    return cnn, lm
+
+
+# ---------------------------------------------------------------------------
+# phase 7: deepseek-v2-236b serving on codr_matmul (MLA, MoE, prologue)
 # ---------------------------------------------------------------------------
 
 # depth cut 60 -> 3: the dense prologue layer and two scanned MoE layers,
@@ -2432,6 +2909,11 @@ def main() -> int:
     kernels[1]["checkpoint"] = checkpoint_phase(
         args, packs, get_config("qwen2.5-3b"))
     say(f"checkpoint phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cnn_tune, lm_tune = tune_phase(args, kernels[0], packs)
+    _add_phase(kernels[0], "tune", cnn_tune)
+    _add_phase(kernels[1], "tune", lm_tune)
+    say(f"tune phase: {time.perf_counter() - t0:.1f} s")
     del packs                         # qwen's packs make room for deepseek
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -23,9 +23,10 @@ array files (``mmap=True``) before copying them to ``device`` (the card
 unless the caller names another).
 
 Every unreadable artifact raises :class:`PackedCheckpointError` naming
-what is wrong.  The port has no ``TunePlan`` yet (ROADMAP A9): a
-compiled model with a plan, or an artifact that carries one, raises
-``NotImplementedError`` naming A9.
+what is wrong.  A compiled model's :class:`~repro_torch.tune.TunePlan`
+goes into the manifest as ``plan.to_json()`` and comes back through
+``TunePlan.from_json``; a plain ``{path: EncodeConfig}`` dict plan has
+no serialized form, and ``save_packed`` raises ``TypeError`` for it.
 """
 from __future__ import annotations
 
@@ -51,12 +52,6 @@ class PackedCheckpointError(ValueError):
     """A packed checkpoint is unreadable: missing/truncated files,
     format-version mismatch, or on-disk bytes that contradict the
     manifest (wrong dtype/shape)."""
-
-
-def _refuse_plan(where: str) -> None:
-    raise NotImplementedError(
-        f"{where}: tune plans are not ported yet (ROADMAP A9), so a packed "
-        f"checkpoint with a plan can be neither written nor read")
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +188,12 @@ def build_manifest(compiled) -> tuple[dict, list]:
     """Pure encoding half of :func:`save_packed`: ``(manifest,
     host_arrays)`` without touching the filesystem, the arrays as they
     are stored (bfloat16 as ``uint16``, packed words as ``uint32``)."""
-    if getattr(compiled, "plan", None) is not None:
-        _refuse_plan("save_packed")
+    plan = getattr(compiled, "plan", None)
+    if plan is not None and not hasattr(plan, "to_json"):
+        raise TypeError(
+            f"save_packed: a {type(plan).__name__} plan cannot be "
+            f"serialized; compile with a repro_torch.tune.TunePlan (e.g. "
+            f"from tune_params) to keep the plan in the artifact")
     arrays: list[np.ndarray] = []
     metas: list[dict] = []
     tree = _encode_tree(compiled.params, arrays, metas)
@@ -207,7 +206,7 @@ def build_manifest(compiled) -> tuple[dict, list]:
         "quantized_paths": list(compiled.quantized_paths),
         "embed_paths": list(getattr(compiled, "embed_paths", [])),
         "reports": [dataclasses.asdict(r) for r in compiled.reports],
-        "plan": None,
+        "plan": plan.to_json() if plan is not None else None,
         "tree": tree,
         "arrays": metas,
     }
@@ -265,8 +264,6 @@ def load_packed(path: str, *, mmap: bool = True, device=None):
             f"{path!r}: format version {ver} but this build reads "
             f"version {CODR_FORMAT_VERSION} — re-encode the checkpoint "
             f"with codr.save_packed")
-    if manifest.get("plan") is not None:
-        _refuse_plan(f"load_packed({path!r})")
     metas = manifest["arrays"]
     arrays = []
     for i, meta in enumerate(metas):
@@ -277,6 +274,10 @@ def load_packed(path: str, *, mmap: bool = True, device=None):
                 f"manifest lists {len(metas)} arrays)")
         arrays.append(_load_array(apath, meta, mmap=mmap))
     params = _decode_tree(manifest["tree"], arrays, metas, dev)
+    plan = None
+    if manifest.get("plan") is not None:
+        from repro_torch.tune.plan import TunePlan
+        plan = TunePlan.from_json(manifest["plan"])
     cfg_d = dict(manifest["config"])
     if cfg_d.get("rle_params") is not None:
         cfg_d["rle_params"] = tuple(cfg_d["rle_params"])
@@ -287,5 +288,5 @@ def load_packed(path: str, *, mmap: bool = True, device=None):
         quantized_paths=list(manifest["quantized_paths"]),
         config=EncodeConfig(**cfg_d),
         backend=manifest["backend"],
-        plan=None,
+        plan=plan,
         embed_paths=list(manifest.get("embed_paths", [])))

@@ -342,11 +342,21 @@ class EncodeConfig:
 
 
 def _plan_config(plan, name: str, default: EncodeConfig) -> EncodeConfig:
-    """A layer's config from a ``{name: EncodeConfig}`` plan; layers the
-    plan does not name get ``default``."""
+    """Resolve a layer's per-layer config from a plan.
+
+    A plan is anything with ``config_for(name, default)`` — e.g.
+    :class:`repro_torch.tune.TunePlan` — or a plain ``{name:
+    EncodeConfig}`` dict.  Layers the plan does not cover get
+    ``default``, so a global config is exactly the degenerate
+    empty/one-entry plan.
+    """
     if plan is None:
         return default
-    cfg = plan.get(name, default)
+    config_for = getattr(plan, "config_for", None)
+    if config_for is not None:
+        cfg = config_for(name, default)
+    else:
+        cfg = plan.get(name, default)
     if not isinstance(cfg, EncodeConfig):
         raise TypeError(f"plan entry for layer {name!r} must be an "
                         f"EncodeConfig, got {type(cfg).__name__}")
@@ -449,8 +459,18 @@ class CompiledModel:
         return self.model.sram_report(input_hw, **kw)
 
     def layer_table(self, input_hw: tuple[int, int] | None = None) -> str:
-        """Human-readable per-layer accounting: U budget, effective tile,
-        measured bits/weight and (with ``input_hw``) SRAM accesses."""
+        """Human-readable per-layer accounting: the U budget and
+        effective tile each layer encoded under, its measured
+        bits/weight, and — when the model was compiled with a tune plan
+        — the tuner's predicted bits/weight and SRAM accesses next to
+        the measured numbers.
+
+        ``input_hw`` enables the measured-SRAM column (per-layer
+        effective tiling, same counting as :meth:`sram_report`); without
+        it conv SRAM cannot be counted and the column shows ``-``.  The
+        text is the reference's, character for character.
+        """
+        plan_layers = getattr(self.plan, "layers", None) or {}
         measured_sram: dict[str, float] = {}
         if input_hw is not None:
             measured_sram = {
@@ -458,14 +478,21 @@ class CompiledModel:
                 for name, acc in self.model.sram_report(
                     input_hw, per_layer_tiling=True)}
         hdr = (f"{'layer':<16} {'kind':<7} {'U':>4} {'t_m':>5} "
-               f"{'bits/w':>7} {'sram':>12}")
+               f"{'bits/w':>7} {'pred b/w':>9} {'sram':>12} "
+               f"{'pred sram':>12}")
         lines = [hdr, "-" * len(hdr)]
         for st in self.stats():
+            lp = plan_layers.get(st.name)
+            pred_bpw = (f"{lp.predicted_bits_per_weight:9.2f}"
+                        if lp is not None else f"{'-':>9}")
+            pred_sram = (f"{lp.predicted_sram:12.3e}"
+                         if lp is not None else f"{'-':>12}")
             sram = (f"{measured_sram[st.name]:12.3e}"
                     if st.name in measured_sram else f"{'-':>12}")
             lines.append(
                 f"{st.name:<16} {st.kind:<7} {st.n_unique_budget:>4} "
-                f"{st.t_m:>5} {st.bits_per_weight:7.2f} {sram}")
+                f"{st.t_m:>5} {st.bits_per_weight:7.2f} {pred_bpw} "
+                f"{sram} {pred_sram}")
         lines.append(f"{'total':<16} {'':<7} {'':>4} {'':>5} "
                      f"{self.bits_per_weight():7.2f}")
         return "\n".join(lines)
@@ -489,8 +516,10 @@ def compile(spec: ModelSpec, config: EncodeConfig | None = None, *,
     ``device`` — where the model runs; ``None`` means the card, and
     raises when there is none.  The backend is resolved and
     capability-checked against the spec BEFORE any encoding work.
-    ``plan`` — optional ``{layer name: EncodeConfig}``; layers it does not
-    name encode under ``config``.
+    ``plan`` — optional per-layer configs: a
+    :class:`repro_torch.tune.TunePlan` (anything with ``config_for``) or a
+    ``{layer name: EncodeConfig}`` dict; layers it does not name encode
+    under ``config``.
     """
     dev = resolve_device(device)
     config = EncodeConfig() if config is None else config
@@ -557,7 +586,7 @@ class CompiledParams:
     quantized_paths: list         # quantize-applied but served dense
     config: EncodeConfig
     backend: str
-    plan: object = None           # per-leaf encode configs, or None
+    plan: object = None           # TunePlan / {path: EncodeConfig} / None
     embed_paths: list = dataclasses.field(default_factory=list)
 
     def packed_leaves(self):
@@ -641,8 +670,10 @@ def compile_params(params, config: EncodeConfig | None = None, *,
     raises that backend's capability error.  ``min_size`` defaults to
     ``serving.MIN_COMPRESS_SIZE``; ``sample_rows`` / ``accounting``
     bound the per-tensor RLE accounting on the host (the packed bytes
-    are always measured in full).  ``plan`` — optional per-leaf
-    ``{path: EncodeConfig}``; leaves it does not name use ``config``.
+    are always measured in full).  ``plan`` — optional per-leaf configs
+    keyed by path (a :class:`repro_torch.tune.TunePlan` from
+    :func:`repro_torch.tune.tune_params`, or a ``{path: EncodeConfig}``
+    dict); leaves it does not name use ``config``.
     """
     from repro_torch.core import serving as _serving
     from repro_torch.core.codr_linear import pack_embedding, pack_projection

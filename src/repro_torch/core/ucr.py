@@ -25,7 +25,7 @@ from repro_torch.core import rle
 __all__ = [
     "UCRVector", "ucr_transform", "ucr_reconstruct", "quantize_int8",
     "dequantize_int8", "restrict_unique", "encode_conv_layer", "encode_linear_layer",
-    "LayerCode",
+    "LayerCode", "layer_ucr_vectors", "layer_code_size_only",
 ]
 
 
@@ -41,6 +41,10 @@ class UCRVector:
     @property
     def n_nonzero(self) -> int:
         return int(self.reps.sum())
+
+    @property
+    def density(self) -> float:
+        return self.n_nonzero / max(self.vector_len, 1)
 
 
 def ucr_transform(w: np.ndarray) -> UCRVector:
@@ -181,3 +185,33 @@ def encode_linear_layer(w: np.ndarray, *, t_m: int = 256, t_n: int = 1,
     """Linear layer ``(M, N)`` = conv with a 1×1 kernel."""
     return encode_conv_layer(np.asarray(w)[:, :, None, None], t_m=t_m,
                              t_n=t_n, n_unique=n_unique, params=params)
+
+
+def layer_ucr_vectors(q: np.ndarray, *, t_m: int = 4, t_n: int = 4
+                      ) -> list[UCRVector]:
+    """UCR vectors of an int8 layer under a tile geometry — the
+    sort/densify/unify half of the pipeline without any RLE bitstream.
+    The tuner (:mod:`repro_torch.tune`) scores candidate tile geometries
+    with this + :func:`repro_torch.core.rle.layer_bits_size_only`."""
+    q = np.asarray(q)
+    if q.ndim == 2:
+        q = q[:, :, None, None]
+    return [ucr_transform(vec) for vec in _iter_tile_vectors(q, t_m, t_n)]
+
+
+def layer_code_size_only(w: np.ndarray, *, t_m: int = 4, t_n: int = 4,
+                         n_unique: int = 256,
+                         params: tuple[int, int, int] | None = None
+                         ) -> tuple[int, int]:
+    """Fast path: (total encoded bits, total weights) without bitstreams.
+
+    Accepts the same U budget / fixed-RLE-params knobs as
+    :func:`encode_conv_layer` so size predictions and real encodes agree.
+    """
+    q, _ = quantize_int8(w)
+    if n_unique < 256:
+        q = restrict_unique(q, n_unique)
+    ucrs = layer_ucr_vectors(q, t_m=t_m, t_n=t_n)
+    vector_len = max((u.vector_len for u in ucrs), default=2)
+    return (rle.layer_bits_size_only(ucrs, vector_len, params=params),
+            int(np.prod(q.shape)))

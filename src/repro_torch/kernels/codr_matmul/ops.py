@@ -45,7 +45,7 @@ Dispatch: a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.codr_matmul.ref.codr_matmul_ref`); a CUDA
 tensor launches a kernel or raises.  :data:`launches` counts kernel
 launches, and only those (one per call); :data:`launches_by_impl` splits
-the same count by instance.  A call made while its stream is capturing a
+the same count by instance, :data:`launches_by_bits` by index width.  A call made while its stream is capturing a
 CUDA graph launches nothing: it records a kernel into the graph and
 counts in :data:`captured` instead.  A replay of the graph launches that
 kernel with no call of the wrapper, so no counter here sees it.
@@ -65,7 +65,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.codr_matmul.ref import codr_matmul_ref
 
 __all__ = ["KERNEL_CAPS", "IMPLS", "SOURCES", "SPLITK_MAX_M",
-           "BITS16_SPLITK_MAX_M", "SM90_BITS", "launches", "launches_by_impl", "pick_impl", "splitk_plan",
+           "BITS16_SPLITK_MAX_M", "SM90_BITS", "launches", "launches_by_impl",
+           "launches_by_bits", "pick_impl", "splitk_plan",
            "sm90_plan", "load_kernel", "captured", "scratch_pool",
            "codr_matmul_cuda", "codr_matmul"]
 
@@ -109,6 +110,7 @@ _SM90_BM, _SM90_BN, _SM90_BK = 128, 128, 64
 
 launches = 0          # kernel launches since the count was last set to 0
 launches_by_impl = dict.fromkeys(IMPLS, 0)   # the same count, by instance
+launches_by_bits = dict.fromkeys(BITS, 0)    # the same count, by index width
 captured = 0          # calls recorded into a CUDA graph, which launch nothing
 
 
@@ -335,6 +337,7 @@ def codr_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
     else:
         launches += 1
         launches_by_impl[impl] += 1
+        launches_by_bits[bits] += 1
     return out
 
 

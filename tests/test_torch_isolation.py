@@ -49,7 +49,10 @@ def test_port_modules_cover_the_slice():
               "repro_torch.configs.granite_moe_1b",
               "repro_torch.configs.qwen1_5_4b",
               "repro_torch.configs.qwen3_32b",
-              "repro_torch.configs.command_r_plus_104b"):
+              "repro_torch.configs.command_r_plus_104b",
+              "repro_torch.tune", "repro_torch.tune.plan",
+              "repro_torch.tune.autotune", "repro_torch.tune.eval",
+              "repro_torch.launch.tune"):
         assert m in mods
 
 

@@ -1,7 +1,6 @@
 """The port's packed checkpoint artifact (``repro_torch.checkpoint
 .packed``) on the CPU, mirroring ``tests/test_packed_checkpoint.py``
-(the qwen2.5-3b half: the enc-dec family waits for ROADMAP A5, and
-``test_roundtrip_preserves_plan`` for A9's ``TunePlan``) and held
+(the qwen2.5-3b half: the enc-dec family waits for ROADMAP A5) and held
 against the JAX package:
 
 * the port's ``build_manifest`` on the golden's params reproduces
@@ -11,7 +10,10 @@ against the JAX package:
   port wrote boots in JAX: the same packed bytes both ways, the port's
   logits bit-identical to its own compile and within one bf16 step
   (rtol / atol 2e-2, the bound ``tests/test_torch_models.py`` states
-  for bfloat16 activations) of JAX's.
+  for bfloat16 activations) of JAX's;
+* an artifact carrying a ``TunePlan`` boots across the packages both
+  ways with the plan's JSON and the logits bits of the booting
+  package's own compile under that plan.
 """
 import json
 import os
@@ -323,24 +325,80 @@ def test_port_artifact_boots_in_jax(model, compiled, tokens, tmp_path):
                                np.asarray(got, np.float32), **BF16)
 
 
-def test_plans_wait_for_a9(model, tmp_path):
-    """A compiled model with a plan cannot be saved, and a JAX artifact
-    with a ``TunePlan`` cannot be read, before the port has plans."""
-    from repro.tune import TunePlan
-    jcfg, japi, jparams, tcfg, _, tparams = model
+def test_roundtrip_preserves_plan(model, tmp_path):
+    from repro_torch.tune import TunePlan
+    *_, tparams = model
+    plan = TunePlan({}, default=codr.EncodeConfig(n_unique=N_UNIQUE))
+    cp = codr.compile_params(tparams, codr.EncodeConfig(n_unique=N_UNIQUE),
+                             plan=plan, device="cpu")
+    path = str(tmp_path / "ck.codr")
+    codr.save_packed(cp, path)
+    cp2 = codr.load_packed(path, device="cpu")
+    assert cp2.plan is not None
+    assert cp2.plan.to_json() == plan.to_json()
+
+
+def test_dict_plan_cannot_be_saved(model, tmp_path):
+    """A ``{path: EncodeConfig}`` plan has no serialized form: TypeError
+    before anything is written (the reference fails there with an
+    AttributeError)."""
+    *_, tparams = model
     cp = codr.compile_params(tparams, codr.EncodeConfig(n_unique=N_UNIQUE),
                              accounting=False, device="cpu",
                              plan={"embed": codr.EncodeConfig(n_unique=8)})
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="cannot be serialized"):
         codr.save_packed(cp, str(tmp_path / "never.codr"))
     assert not os.path.exists(str(tmp_path / "never.codr.tmp"))
-    plan = TunePlan({}, default=jcodr.EncodeConfig(n_unique=N_UNIQUE))
-    jcp = jcodr.compile_params(jparams, jcodr.EncodeConfig(n_unique=N_UNIQUE),
-                               plan=plan)
-    path = str(tmp_path / "planned.codr")
-    jcodr.save_packed(jcp, path)
-    with pytest.raises(NotImplementedError, match="A9"):
-        codr.load_packed(path, device="cpu")
+    assert not os.path.exists(str(tmp_path / "never.codr"))
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_tuned_artifact_boots_across_packages(model, tokens, tmp_path,
+                                              direction):
+    """A ``tune_params`` plan mixing U = 16 and 32 (4- and 8-bit packs):
+    the artifact one package writes boots in the other with the plan's
+    JSON, the same packed bytes, and the logits bits of the booting
+    package's own compile under the same plan."""
+    from repro import tune as jtune
+    from repro_torch import tune
+    jcfg, japi, jparams, tcfg, tapi, tparams = model
+    kw = dict(n_uniques=(4, 8, 16, 32))
+    jplan = jtune.tune_params(jparams, budget=jtune.TuneBudget(
+        max_rel_err=0.15), **kw)
+    tplan = tune.tune_params(tparams, budget=tune.TuneBudget(
+        max_rel_err=0.15), **kw)
+    assert {p: lp.config.n_unique for p, lp in tplan.layers.items()} == \
+        {p: lp.config.n_unique for p, lp in jplan.layers.items()}
+    assert len({lp.config.n_unique for lp in tplan.layers.values()}) == 2
+    tcp = codr.compile_params(tparams, codr.EncodeConfig(n_unique=N_UNIQUE),
+                              plan=tplan, backend="codr_matmul", device="cpu")
+    jcp = jcodr.compile_params(jparams, jcodr.EncodeConfig(
+        n_unique=N_UNIQUE), plan=jplan, backend="codr_matmul")
+    path = str(tmp_path / "tuned.codr")
+    if direction == "jax_to_port":
+        jcodr.save_packed(jcp, path)
+        cp = codr.load_packed(path, device="cpu")
+        assert cp.plan.to_json() == jplan.to_json()
+        assert cp.packed_paths == tcp.packed_paths
+        for (_, a), (_, b) in zip(cp.packed_leaves(), tcp.packed_leaves()):
+            assert a.weight.bits == b.weight.bits
+            for x, y in zip(_words(a), _words(b)):
+                assert x.tobytes() == y.tobytes()
+        np.testing.assert_array_equal(_logits(tapi, cp.params, tcfg, tokens),
+                                      _logits(tapi, tcp.params, tcfg, tokens))
+    else:
+        codr.save_packed(tcp, path)
+        cp = jcodr.load_packed(path)
+        assert cp.plan.to_json() == tplan.to_json()
+        assert list(cp.packed_paths) == list(jcp.packed_paths)
+        got, _ = japi.prefill(cp.params, {"tokens": jnp.asarray(tokens)},
+                              jcfg)
+        want, _ = japi.prefill(jcp.params, {"tokens": jnp.asarray(tokens)},
+                               jcfg)
+        np.testing.assert_array_equal(np.asarray(got, np.float32),
+                                      np.asarray(want, np.float32))
+    assert {leaf.weight.bits for p, leaf in tcp.packed_leaves()
+            if p in tplan.layers} == {4, 8}
 
 
 def test_load_defaults_to_the_card(compiled, tmp_path):

@@ -235,11 +235,6 @@ def test_unported_paths_raise_with_the_roadmap_item(setup):
     from repro_torch.runtime.resilience import retry_call
     with pytest.raises(NotImplementedError, match="A10"):
         retry_call(lambda: 1, supervisor=object())
-    cp = tcodr.compile_params(tparams, tcodr.EncodeConfig(n_unique=N_UNIQUE),
-                              accounting=False, device="cpu",
-                              plan={"embed": tcodr.EncodeConfig(n_unique=8)})
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcodr.save_packed(cp, "never-written.codr")
 
 
 @pytest.mark.parametrize("use_codr", [False, True])
