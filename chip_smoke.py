@@ -96,6 +96,24 @@ float32, a profiled window of replays, every new projection shape at
 M = 4 and 128, and four requests through the batcher on the dense,
 bf16-paged and int8-paged pools (captured == eager, bf16 paged ==
 dense, int8 within 0.10); peak device memory per step of the phase.
+
+Then the rest of the reference's registry, each phase served the same
+way by ``model_phase`` (init on the card, 4-bit packs, prefill, and
+``run_serve``'s loop replayed from one CUDA graph: ``greedy_decode``, or
+``pad_self_cache`` and ``encdec_decode`` for the encoder-decoder), the
+launches held to the counts the code gives and the routing rule, the
+graph's ``codr_matmul`` kernel nodes counted, the replayed loop held bit
+for bit to the eager one at every step and the lane to ``tiled`` in
+float32: jamba-v0.1-52b at its published widths, depth cut 32 -> 8
+(one period: seven mamba layers and one attention layer, four MoE and
+four dense MLPs; ~13.3 B parameters), with a profiled window of
+replays, per-shape rows for its narrow projections (x_proj 8192 -> 288,
+dt_proj 256 -> 8192, in_proj, the router 4096 -> 16) and four requests
+through the batcher's dense pool (captured == eager; the paged pools
+refuse an SSM mixer); xlstm-350m whole (24 layers; the batcher too;
+the if_proj 2048 -> 8 row); seamless-m4t-medium whole (12 + 12 layers,
+stub frames (4, 1024, 1024)); internvl2-26b at its published widths,
+depth cut 48 -> 4, behind a stub vision prefix (4, 1024, 6144).
 A host-only line gives the paper's cost-model ratios (a model estimate,
 not a measurement).
 
@@ -116,6 +134,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -678,24 +697,40 @@ def _lane_check(a, b, what: str) -> float:
     return err
 
 
-def _teacher_forced(api, params, cfg, tokens, dtype, steps: int = 4):
+def _teacher_forced(api, params, cfg, tokens, dtype, steps: int = 4,
+                    prefix=None):
     """Prefill + ``steps`` decode steps fed the prompt's own tokens, with
-    activations in ``dtype`` (the model's ``DEFAULT_DTYPE`` swapped for
-    the call, as the reference's tests do for a float32 comparison)."""
+    activations in ``dtype`` (``DEFAULT_DTYPE`` of both model modules
+    swapped for the call, as the reference's tests do for a float32
+    comparison): the decoder-only steps over a fresh cache, the
+    encoder-decoder's over its prefill cache padded out.  ``prefix`` is
+    the frontend stub's (the encoder's frames)."""
     import torch
 
-    from repro_torch.models import lm
-    saved, lm.DEFAULT_DTYPE = lm.DEFAULT_DTYPE, dtype
+    from repro_torch.launch.serve import pad_self_cache
+    from repro_torch.models import encdec, lm
+    saved = lm.DEFAULT_DTYPE, encdec.DEFAULT_DTYPE
+    lm.DEFAULT_DTYPE = encdec.DEFAULT_DTYPE = dtype
+    batch_in = {"tokens": tokens}
+    if prefix is not None:
+        batch_in["prefix"] = prefix
     try:
-        out = [api.prefill(params, {"tokens": tokens}, cfg)[0]]
-        cache = api.init_cache(cfg, tokens.shape[0], steps, dtype=dtype,
-                               device=tokens.device)
+        logits, cache = api.prefill(params, batch_in, cfg)
+        out = [logits]
+        if cfg.family == "encdec":
+            start = tokens.shape[1]
+            cache = pad_self_cache(cache, start + steps)
+        else:
+            start = 0
+            cache = api.init_cache(cfg, tokens.shape[0], steps, dtype=dtype,
+                                   device=tokens.device)
         for i in range(steps):
-            lg, cache = api.decode_step(params, cache, tokens[:, i], i, cfg)
+            lg, cache = api.decode_step(params, cache, tokens[:, i],
+                                        start + i, cfg)
             out.append(lg)
         torch.cuda.synchronize()
     finally:
-        lm.DEFAULT_DTYPE = saved
+        lm.DEFAULT_DTYPE, encdec.DEFAULT_DTYPE = saved
     return out
 
 
@@ -713,26 +748,41 @@ def _profile_step(api, params, cfg, tokens) -> dict:
     return out
 
 
-def _step_logits(api, params, tokens, cfg, gen_len, *, captured: bool):
-    """``greedy_decode``'s loop with a copy of every step's logits kept:
-    ``decode_step`` eagerly, or one ``CapturedDecode`` replayed."""
+def _step_logits(api, params, tokens, cfg, gen_len, *, captured: bool,
+                 prefix=None):
+    """``run_serve``'s loop for ``cfg``'s family with a copy of every
+    step's logits kept, ``decode_step`` eagerly or one ``CapturedDecode``
+    replayed (captured under ``_kept_graphs``): the decoder-only loop
+    (``greedy_decode``) replays the prompt ``tokens`` over a fresh cache,
+    the encoder-decoder loop (``encdec_decode``) continues from the
+    prefill of ``prefix`` and ``tokens``, its cache padded out.  Returns
+    ``(rows, the CapturedDecode or None)``."""
     import torch
 
+    from repro_torch.launch.serve import pad_self_cache
     from repro_torch.models.lm import CapturedDecode
     batch, prompt_len = tokens.shape
     total = prompt_len + gen_len
-    cache = api.init_cache(cfg, batch, total, device=tokens.device)
-    step = CapturedDecode(params, cache, cfg, batch) if captured else None
-    rows, tok = [], tokens[:, 0]
-    for i in range(total - 1):
-        if step is None:
-            logits, cache = api.decode_step(params, cache, tok, i, cfg)
-        else:
-            logits = step(tok, i)
-        rows.append(logits.clone())
-        tok = (tokens[:, i + 1] if i + 1 < prompt_len
-               else torch.argmax(logits, dim=-1))
-    return rows
+    if cfg.family == "encdec":
+        logits, cache = api.prefill(params, {"tokens": tokens,
+                                             "prefix": prefix}, cfg)
+        cache = pad_self_cache(cache, total)
+        tok, start = torch.argmax(logits[:, -1], dim=-1), prompt_len
+    else:
+        cache = api.init_cache(cfg, batch, total, device=tokens.device)
+        tok, start = tokens[:, 0], 0
+    with _kept_graphs():
+        step = CapturedDecode(params, cache, cfg, batch) if captured else None
+        rows = []
+        for i in range(start, total - 1):
+            if step is None:
+                logits, cache = api.decode_step(params, cache, tok, i, cfg)
+            else:
+                logits = step(tok, i)
+            rows.append(logits.clone())
+            tok = (tokens[:, i + 1] if i + 1 < prompt_len
+                   else torch.argmax(logits, dim=-1))
+    return rows, step
 
 
 def _profile_replay(api, params, cfg, tokens, gen_len, per_forward: int,
@@ -925,10 +975,10 @@ def serve_path(args) -> tuple:
     if not torch.equal(out, out_eager):
         fail("the replayed loop's tokens differ from the eager loop's")
     # and every step's logits, bit for bit, the loop driven step by step
-    eager_logits = _step_logits(api, params, tokens, cfg, gen_len,
-                                captured=False)
-    replay_logits = _step_logits(api, params, tokens, cfg, gen_len,
-                                 captured=True)
+    eager_logits, _ = _step_logits(api, params, tokens, cfg, gen_len,
+                                   captured=False)
+    replay_logits, _ = _step_logits(api, params, tokens, cfg, gen_len,
+                                    captured=True)
     if len(eager_logits) != n_steps or len(replay_logits) != n_steps:
         fail(f"{len(eager_logits)} / {len(replay_logits)} steps, expected "
              f"{n_steps}")
@@ -2309,10 +2359,10 @@ def tune_phase(args, cnn_row: dict, packs) -> tuple:
                                     eager=True)
     if not torch.equal(out, out_eager):
         fail("tune lm: the replayed loop's tokens differ from the eager's")
-    eager = _step_logits(api, cp.params, tokens, cfg, TUNE_GEN,
-                         captured=False)
-    replay = _step_logits(api, cp.params, tokens, cfg, TUNE_GEN,
-                          captured=True)
+    eager, _ = _step_logits(api, cp.params, tokens, cfg, TUNE_GEN,
+                            captured=False)
+    replay, _ = _step_logits(api, cp.params, tokens, cfg, TUNE_GEN,
+                             captured=True)
     for i, (a, b) in enumerate(zip(eager, replay)):
         if not torch.equal(a, b):
             fail(f"tune lm: decode step {i}: replayed logits differ from "
@@ -2381,14 +2431,14 @@ DS_LAYERS = 3
 # weights decoded on dispatch, no kernel
 DS_PER_PREFILL = 8 * DS_LAYERS
 DS_PER_STEP = 7 * DS_LAYERS
-DS_BATCH_LENS = (5, 12, 17, 24)        # prompt lengths of the batcher phase
+PHASE_BATCH_LENS = (5, 12, 17, 24)     # prompts of model_phase's batchers
 
 
-def _peak(label: str, peaks: dict) -> None:
+def _peak(label: str, peaks: dict, phase: str = "deepseek") -> None:
     """Record and print the peak device memory since the last reset."""
     import torch
     peaks[label] = torch.cuda.max_memory_allocated()
-    say(f"deepseek peak device memory, {label}: {peaks[label]} bytes")
+    say(f"{phase} peak device memory, {label}: {peaks[label]} bytes")
     torch.cuda.reset_peak_memory_stats()
 
 
@@ -2405,11 +2455,7 @@ def _ds_shapes(params) -> dict:
         layer0[f"prologue_mlp/{name}"] = pl
     for name, pl in params["stack"]["b0"]["mlp"]["shared"].items():
         layer0[f"shared/{name}"] = pl[0]
-    shapes: dict = {}
-    for name, pl in layer0.items():
-        shapes.setdefault((pl.weight.shape[0], pl.out_features), []).append(
-            (name, pl))
-    return shapes
+    return _named_shapes(layer0)
 
 
 def _ds_calls(name: str, decode: bool) -> int:
@@ -2424,7 +2470,8 @@ def _ds_calls(name: str, decode: bool) -> int:
     return 1
 
 
-def _ds_shape_rows(args, shapes, batch: int, prompt_len: int) -> list:
+def _shape_rows(args, shapes, batch: int, prompt_len: int,
+                label: str = "deepseek") -> list:
     """Each projection shape at M = batch and M = batch * prompt_len, L2
     flushed: the routed instance held to the plain version, and its ms
     beside the plain version's, ``torch.matmul`` bf16 on the dense weight
@@ -2457,10 +2504,10 @@ def _ds_shape_rows(args, shapes, batch: int, prompt_len: int) -> list:
             err = float((yk - yp).abs().max())
             rtol, atol = MM_F32
             if not bool(((yk - yp).abs() <= atol + rtol * yp.abs()).all()):
-                fail(f"deepseek codr_matmul [{routed}] {k}x{n} M={m}: "
+                fail(f"{label} codr_matmul [{routed}] {k}x{n} M={m}: "
                      f"kernel vs plain max-abs {err}")
             if not torch.equal(yk, call()):
-                fail(f"deepseek codr_matmul [{routed}] {k}x{n} M={m}: two "
+                fail(f"{label} codr_matmul [{routed}] {k}x{n} M={m}: two "
                      f"calls differ")
             n_bytes = x.numel() * 4 + w.packed.numel() * 4 \
                 + w.table.numel() * 4 + 4 + m * w.shape[1] * 4
@@ -2480,7 +2527,7 @@ def _ds_shape_rows(args, shapes, batch: int, prompt_len: int) -> list:
                        "bytes": n_bytes, "ops": 2 * m * k * w.shape[1],
                        "bound_ms": b_ms, "bound_by": b_by}
             rows.append(row)
-            say(f"deepseek codr_matmul {row['proj']} {k}x{n} M={m} "
+            say(f"{label} codr_matmul {row['proj']} {k}x{n} M={m} "
                 f"({w.bits}-bit): routed [{routed}] {row['ms']:.4f} ms, "
                 f"plain {row['plain_ms']:.4f} ms, torch.matmul bf16 "
                 f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -2511,7 +2558,7 @@ def _ds_batcher(packs, cfg, prompts, peaks) -> dict:
         cap = pair["captured"]
         graph = cap["cb"]._graph
         want_pre = dict.fromkeys(ops.IMPLS, 0)
-        for n in DS_BATCH_LENS:
+        for n in PHASE_BATCH_LENS:
             want_pre[ops.pick_impl(n, bits)] += DS_PER_PREFILL
         want_dec = dict.fromkeys(ops.IMPLS, 0)
         want_dec[ops.pick_impl(4, bits)] += DS_PER_STEP
@@ -2571,33 +2618,171 @@ def _ds_batcher(packs, cfg, prompts, peaks) -> dict:
 
 def deepseek_phase(args) -> dict:
     """deepseek-v2-236b at its published widths, depth cut to 3, served
-    from 4-bit packs through the entry points a user calls; returns the
-    phase's part of the ``codr_matmul`` row."""
+    from 4-bit packs through the entry points a user calls
+    (``model_phase``), with the new projection shapes' rows, one decode
+    step's and one prefill's sums of them, and the batcher's three
+    pools; returns the phase's part of the ``codr_matmul`` row."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DS_LAYERS)
+    return model_phase(
+        args, "deepseek", cfg,
+        f"published widths (MLA q_lora {cfg.q_lora_rank} kv_lora "
+        f"{cfg.kv_lora_rank}, {cfg.n_experts} routed experts top-"
+        f"{cfg.moe_top_k} of width {cfg.moe_d_ff} + {cfg.n_shared_experts} "
+        f"shared), depth 60 -> {DS_LAYERS} (the prologue and "
+        f"{cfg.n_periods} MoE layers)", per_prefill=DS_PER_PREFILL,
+        per_step=DS_PER_STEP, gen_len=32, shapes=_ds_shapes, calls=_ds_calls,
+        profile=True, batcher=_ds_batcher)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the other architectures on codr_matmul — jamba-v0.1-52b (mamba,
+# attention and MoE in one period) at its published widths, xlstm-350m,
+# seamless-m4t-medium and internvl2-26b's prefix; model_phase serves
+# deepseek-v2-236b (phase 7) too
+# ---------------------------------------------------------------------------
+
+# codr_matmul calls a forward makes, by the code (models/ssm.py,
+# models/attention.py, models/moe.py, models/encdec.py; the routers, the
+# routed experts and sLSTM's r_proj are weights decoded on dispatch, no
+# kernel):
+# * jamba, one period: seven mamba layers (in, x, dt, out) and one GQA
+#   layer (q, k, v, o), four dense MLPs (up, gate, down): 7·4 + 4 + 4·3;
+# * xlstm, a period: mLSTM (up, q, k, v, if, out) and sLSTM (w, out);
+# * seamless, prefill: an encoder layer q, k, v, o, up, down, a decoder
+#   layer self q, k, v, o, cross q, k, v, o, up, down; a decode step
+#   reuses the cross k / v: 8 a decoder layer;
+# * internvl: q, k, v, o, up, gate, down a layer.
+JAMBA_LAYERS = 8
+JAMBA_PER_FORWARD = 7 * 4 + 4 + 4 * 3
+XLSTM_PER_PERIOD = 8
+SEAMLESS_PER_LAYER = {"enc": 6, "dec_prefill": 10, "dec_step": 8}
+INTERNVL_LAYERS = 4
+
+
+def _zero_counts(ops) -> None:
+    ops.launches = ops.captured = 0
+    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+
+
+def _ssm_batcher(label, packs, cfg, prompts, peaks, *,
+                 per_forward: int) -> dict:
+    """Four requests through the batcher on the dense pool, captured and
+    eager with the same bits, launches held to the routing rule; the
+    paged pools refuse an SSM mixer, as in the reference."""
+    from repro_torch.core.batching import ContinuousBatcher
+    from repro_torch.kernels.codr_matmul import ops
+    bits = next(leaf.weight.bits for _, leaf in packs.packed_leaves()
+                if hasattr(leaf, "out_features"))
+    _zero_counts(ops)
+    pair = {mode: _batcher_run(packs, cfg, prompts, ops,
+                               eager=mode == "eager")
+            for mode in ("captured", "eager")}
+    _same_bits(pair["eager"], pair["captured"],
+               f"{label} dense: eager vs captured")
+    cap = pair["captured"]
+    graph = cap["cb"]._graph
+    want_pre = dict.fromkeys(ops.IMPLS, 0)
+    for n in PHASE_BATCH_LENS:
+        want_pre[ops.pick_impl(n, bits)] += per_forward
+    want_dec = dict.fromkeys(ops.IMPLS, 0)
+    want_dec[ops.pick_impl(4, bits)] += per_forward
+    if (cap["prefill"] != want_pre or cap["decode"] != want_dec
+            or graph.captures != 1 or graph.replays != cap["cb"].steps_run):
+        fail(f"{label} batcher: codr_matmul launches {cap['prefill']} / "
+             f"{cap['decode']} (captures {graph.captures}, replays "
+             f"{graph.replays}, steps {cap['cb'].steps_run}), the routing "
+             f"rule predicts {want_pre} / {want_dec}")
+    lanes = {mode: {"tokens_s": r["tokens_s"],
+                    "step_ms_median": r["step_ms_median"],
+                    "steps_run": r["cb"].steps_run}
+             for mode, r in pair.items()}
+    for r in pair.values():
+        r["cb"]._graph = None              # free the graph's memory pool
+    refused = []
+    for kv in POOLS.values():
+        if not kv:
+            continue
+        try:
+            ContinuousBatcher(packs, cfg, n_slots=4, max_len=96, **kv)
+        except NotImplementedError as e:
+            refused.append(str(e).split(" — ")[0])
+        else:
+            fail(f"{label} batcher: a paged pool ({kv}) took an SSM mixer")
+    say(f"{label} batcher dense pool: captured step median "
+        f"{lanes['captured']['step_ms_median']:.3f} ms, "
+        f"{lanes['captured']['tokens_s']:.3f} tokens/s; eager step median "
+        f"{lanes['eager']['step_ms_median']:.3f} ms; eager and captured "
+        f"equal bit for bit; codr_matmul launches prefill {cap['prefill']}, "
+        f"warm-up {cap['decode']} (routing predicts {want_pre} / "
+        f"{want_dec}); the paged pools refuse: {refused} [{SMI}]")
+    _peak("batcher runs", peaks, label)
+    return {"dense": lanes, "launches_by_impl": {"prefill": cap["prefill"],
+                                                 "decode": cap["decode"]},
+            "paged_refused": refused}
+
+
+def _sums(label, rows, calls, batch: int, prompt_len: int, bits: int
+          ) -> dict:
+    """One decode step's and one prefill's sums of the per-shape rows,
+    each shape weighted by the calls ``calls(name, decode)`` gives it."""
+    from repro_torch.kernels.codr_matmul import ops
+    keys = ("ms", "plain_ms", "library_ms", "bytes", "ops")
+    fwd, pre = ({key: sum(r[key] * sum(calls(name, decode)
+                                       for name in r["names"])
+                          for r in rows if r["m"] == m)
+                 for key in keys}
+                for m, decode in ((batch, True), (batch * prompt_len, False)))
+    b_ms, b_by = bound(fwd["bytes"], fwd["ops"], BF16_FLOPS)
+    say(f"{label} codr_matmul one decode step (M={batch}, sums of the "
+        f"per-shape rows): routed [{ops.pick_impl(batch, bits)}] "
+        f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, torch.matmul "
+        f"bf16 {fwd['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"prefill (M={batch * prompt_len}): routed "
+        f"[{ops.pick_impl(batch * prompt_len, bits)}] {pre['ms']:.4f} ms, "
+        f"plain {pre['plain_ms']:.4f} ms, torch.matmul bf16 "
+        f"{pre['library_ms']:.4f} ms [{SMI}]")
+    return {"per_step": {**fwd, "bound_ms": b_ms, "bound_by": b_by},
+            "per_prefill_sums": pre}
+
+
+def model_phase(args, label: str, cfg, cut: str, *, per_prefill: int,
+                per_step: int, gen_len: int, shapes=None, calls=None,
+                profile: bool = False, batcher=None) -> dict:
+    """One architecture served from 4-bit packs through the entry points
+    a user calls (``init_params`` → ``compile_params`` → ``prefill`` →
+    ``greedy_decode`` or, for the encoder-decoder, ``pad_self_cache`` →
+    ``encdec_decode``: ``run_serve``'s loops) at batch 4 and a prompt of
+    32, with a random ``(4, frontend_seq, d_model)`` prefix where the
+    model takes one.  Held: the codr_matmul launches to the counts the
+    code gives and the routing rule (``per_prefill`` calls a prefill,
+    ``per_step`` a step), the graph's kernel nodes to ``per_step``, the
+    replayed loop to the eager loop bit for bit at every step, and the
+    lane to ``tiled`` in float32.  ``shapes(params)`` names the
+    projection shapes to time (``calls(name, decode)`` weights them into
+    a step's and a prefill's sums); ``profile`` profiles a replayed
+    window (decoder-only); ``batcher(packs, cfg, prompts, peaks)`` runs
+    the batcher on four requests."""
     import numpy as np
     import torch
 
     import repro_torch.api as codr
-    from repro_torch.configs import get_config
     from repro_torch.core.engine import full_fp32
     from repro_torch.core.tree import leaves_with_path
     from repro_torch.kernels.codr_matmul import ops
-    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.launch.serve import (encdec_decode, greedy_decode,
+                                          pad_self_cache)
     from repro_torch.models import get_model
 
-    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
-                              n_layers=DS_LAYERS)
-    batch, prompt_len, gen_len = 4, 32, 32    # run_serve's defaults
+    batch, prompt_len = 4, 32
     api = get_model(cfg)
     peaks: dict = {}
-    say(f"deepseek: {cfg.name} at its published widths (d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads, MLA q_lora {cfg.q_lora_rank} "
-        f"kv_lora {cfg.kv_lora_rank} nope {cfg.nope_head_dim} rope "
-        f"{cfg.rope_head_dim} v {cfg.v_head_dim}, {cfg.n_experts} routed "
-        f"experts top-{cfg.moe_top_k} of width {cfg.moe_d_ff} + "
-        f"{cfg.n_shared_experts} shared, prologue d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}); depth cut 60 -> {cfg.n_layers} (the prologue "
-        f"and {cfg.n_periods} MoE layers); batch {batch}, prompt "
-        f"{prompt_len}, gen {gen_len}; random weights (seed {args.seed})")
+    say(f"{label}: {cfg.name} ({cfg.family}), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, head dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, period "
+        f"{cfg.block_pattern}; {cut}; batch {batch}, prompt {prompt_len}, "
+        f"gen {gen_len}; random weights (seed {args.seed})")
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t0 = time.perf_counter()
@@ -2605,6 +2790,7 @@ def deepseek_phase(args) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(leaf.numel() for _, leaf in leaves_with_path(params))
+    _peak("init", peaks, label)
     t0 = time.perf_counter()
     compiled = codr.compile_params(params, codr.EncodeConfig(n_unique=16),
                                    backend="codr_matmul", accounting=False,
@@ -2614,167 +2800,261 @@ def deepseek_phase(args) -> dict:
     del params
     params = compiled.params
     torch.cuda.empty_cache()
-    say(f"deepseek encode: {n_params} parameters drawn on the card in "
+    bits = {leaf.weight.bits for _, leaf in compiled.packed_leaves()
+            if hasattr(leaf, "out_features")}
+    say(f"{label} encode: {n_params} parameters drawn on the card in "
         f"{init_s:.2f} s; compile_params (U = 16) {encode_s:.2f} s; "
         f"{len(compiled.packed_paths)} packed projections + "
-        f"{len(compiled.embed_paths)} embeddings; packed "
-        f"{compiled.hbm_bytes()} bytes vs dense bf16 "
+        f"{len(compiled.embed_paths)} embeddings, bits {sorted(bits)}; "
+        f"packed {compiled.hbm_bytes()} bytes vs dense bf16 "
         f"{compiled.dense_bf16_bytes()} bytes, "
         f"{compiled.bits_per_weight():.4f} bits/weight")
-    _peak("init + encode", peaks)
-    bits = params["stack"]["b0"]["mixer"]["q_a_proj"][0].weight.bits
+    _peak("encode", peaks, label)
+    if len(bits) != 1:
+        fail(f"{label}: packs of several widths {bits}")
+    bits = bits.pop()
 
     # -- the main path: prefill, then run_serve's loop replayed from one
     # captured decode step
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device="cuda")
-    ops.launches = ops.captured = 0
-    ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+    prefix = None
+    batch_in = {"tokens": tokens}
+    if cfg.frontend or cfg.family == "encdec":
+        prefix = torch.randn((batch, cfg.frontend_seq, cfg.d_model),
+                             generator=gen, device="cuda")
+        batch_in["prefix"] = prefix
+    _zero_counts(ops)
     t0 = time.perf_counter()
-    logits, _ = api.prefill(params, {"tokens": tokens}, cfg)
+    logits, cache = api.prefill(params, batch_in, cfg)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_by_impl = dict(ops.launches_by_impl)
     prefill_launches = ops.launches
+
+    def decode_loop(eager: bool):
+        if cfg.family == "encdec":
+            c = pad_self_cache(api.prefill(params, batch_in, cfg)[1]
+                               if eager else cache, prompt_len + gen_len)
+            return encdec_decode(api, params, c, logits, cfg, prompt_len,
+                                 gen_len, eager=eager)
+        return greedy_decode(api, params, tokens, cfg, gen_len, eager=eager)
     t0 = time.perf_counter()
-    out, _, n_steps = greedy_decode(api, params, tokens, cfg, gen_len)
+    out, _, n_steps = decode_loop(eager=False)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    del cache
     launches, captured = ops.launches, ops.captured
     by_impl = dict(ops.launches_by_impl)
+    # every prefill projection sees more than 16 rows here (M = 128, and
+    # the encoder's or the prefixed prompt's 4 x 1024 / 4 x 1056)
     want_prefill = dict.fromkeys(ops.IMPLS, 0)
-    want_prefill[ops.pick_impl(batch * prompt_len, bits)] += DS_PER_PREFILL
+    want_prefill[ops.pick_impl(batch * prompt_len, bits)] += per_prefill
     want = dict(want_prefill)
-    want[ops.pick_impl(batch, bits)] += DS_PER_STEP
+    want[ops.pick_impl(batch, bits)] += per_step
+    want_steps = gen_len - 1 + (0 if cfg.family == "encdec" else prompt_len)
     ms_step = decode_s / n_steps * 1e3
-    say(f"deepseek main path: prefill {prefill_ms:.3f} ms; {n_steps} decode "
+    say(f"{label} main path: prefill {prefill_ms:.3f} ms; {n_steps} decode "
         f"steps replayed from one CUDA graph {decode_s * 1e3:.3f} ms "
         f"({ms_step:.3f} ms/step, the warm-up step and the capture "
         f"included); codr_matmul launches counted {launches}: "
-        f"{prefill_launches} in prefill ({DS_PER_PREFILL} expected), "
-        f"{launches - prefill_launches} in the warm-up step "
-        f"({DS_PER_STEP} expected); {captured} calls recorded at the "
-        f"capture; by instance prefill {prefill_by_impl}, in all {by_impl} "
-        f"(routing predicts {want_prefill} / {want}) [{SMI}]")
-    if (prefill_launches != DS_PER_PREFILL or captured != DS_PER_STEP
-            or launches != DS_PER_PREFILL + DS_PER_STEP
+        f"{prefill_launches} in prefill ({per_prefill} expected), "
+        f"{launches - prefill_launches} in the warm-up step ({per_step} "
+        f"expected); {captured} calls recorded at the capture; by instance "
+        f"prefill {prefill_by_impl}, in all {by_impl} (routing predicts "
+        f"{want_prefill} / {want}) [{SMI}]")
+    if (prefill_launches != per_prefill or captured != per_step
+            or launches != per_prefill + per_step
             or prefill_by_impl != want_prefill or by_impl != want
-            or n_steps != prompt_len + gen_len - 1):
-        fail(f"deepseek: codr_matmul launches {prefill_launches} / "
+            or n_steps != want_steps):
+        fail(f"{label}: codr_matmul launches {prefill_launches} / "
              f"{launches} / captured {captured} ({prefill_by_impl} / "
-             f"{by_impl}), expected {DS_PER_PREFILL} / "
-             f"{DS_PER_PREFILL + DS_PER_STEP} / {DS_PER_STEP} "
-             f"({want_prefill} / {want})")
+             f"{by_impl}) over {n_steps} steps, expected {per_prefill} / "
+             f"{per_prefill + per_step} / {per_step} ({want_prefill} / "
+             f"{want}) over {want_steps}")
     if tuple(logits.shape) != (batch, 1, cfg.vocab_size) \
             or not bool(torch.isfinite(logits.float()).all()):
-        fail(f"deepseek: prefill logits {tuple(logits.shape)} not finite")
+        fail(f"{label}: prefill logits {tuple(logits.shape)} not finite")
     if tuple(out.shape) != (batch, gen_len) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
-        fail(f"deepseek: generated tokens {tuple(out.shape)} out of range")
-    _peak("prefill + captured decode loop", peaks)
+        fail(f"{label}: generated tokens {tuple(out.shape)} out of range")
+    _peak("prefill + captured decode loop", peaks, label)
+
+    # -- the same loop eager: the same tokens, and every step's logits
     t0 = time.perf_counter()
-    out_eager, _, _ = greedy_decode(api, params, tokens, cfg, gen_len,
-                                    eager=True)
+    out_eager, _, _ = decode_loop(eager=True)
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) / n_steps * 1e3
     if not torch.equal(out, out_eager):
-        fail("deepseek: the replayed loop's tokens differ from the eager "
-             "loop's")
-    eager_rows = _step_logits(api, params, tokens, cfg, gen_len,
-                              captured=False)
-    replay_rows = _step_logits(api, params, tokens, cfg, gen_len,
-                               captured=True)
+        fail(f"{label}: the replayed loop's tokens differ from the eager "
+             f"loop's")
+    eager_rows, _ = _step_logits(api, params, tokens, cfg, gen_len,
+                                 captured=False, prefix=prefix)
+    replay_rows, step = _step_logits(api, params, tokens, cfg, gen_len,
+                                     captured=True, prefix=prefix)
+    in_graph = _graph_kernels(step.graph, MM_KERNEL_NAMES)
+    del step
     if len(eager_rows) != n_steps or len(replay_rows) != n_steps:
-        fail(f"deepseek: {len(eager_rows)} / {len(replay_rows)} steps")
+        fail(f"{label}: {len(eager_rows)} / {len(replay_rows)} steps, "
+             f"expected {n_steps}")
     for i, (a, b) in enumerate(zip(eager_rows, replay_rows)):
         if not torch.equal(a, b):
-            fail(f"deepseek decode step {i}: replayed logits differ from "
-                 f"eager (max-abs {float((a.float() - b.float()).abs().max())})")
+            fail(f"{label} decode step {i}: replayed logits differ from "
+                 f"eager (max-abs "
+                 f"{float((a.float() - b.float()).abs().max())})")
+    if in_graph != per_step:
+        fail(f"{label}: the graph holds {in_graph} codr_matmul kernels, "
+             f"expected {per_step}")
     del eager_rows, replay_rows
     torch.cuda.empty_cache()
-    say(f"deepseek graph: {n_steps} steps, tokens equal and logits equal "
-        f"bit for bit at every step; eager {eager_ms:.3f} ms/step vs "
+    say(f"{label} graph: {n_steps} steps, tokens equal and logits equal bit "
+        f"for bit at every step; the graph holds {in_graph} codr_matmul "
+        f"kernels ({per_step} expected); eager {eager_ms:.3f} ms/step vs "
         f"replayed {ms_step:.3f} ms/step [{SMI}]")
-    say(f"deepseek sample generation (first row): {out[0, :16].tolist()}")
-    _peak("eager loop + step-by-step logits", peaks)
+    say(f"{label} sample generation (first row): {out[0, :16].tolist()}")
+    _peak("eager loop + step-by-step logits", peaks, label)
 
     # -- the codr_matmul lane against the tiled lane, teacher-forced in
-    # float32 (the qwen path's gate); bfloat16 printed, not a check
+    # float32 (gated); bfloat16 printed, not a check
     tiled = _rebind(params, "tiled")
     with full_fp32():
-        f32 = {lane: _teacher_forced(api, p, cfg, tokens, torch.float32)
+        f32 = {lane: _teacher_forced(api, p, cfg, tokens, torch.float32,
+                                     prefix=prefix)
                for lane, p in (("codr_matmul", params), ("tiled", tiled))}
     lane_err = 0.0
     for i, (a, b) in enumerate(zip(f32["codr_matmul"], f32["tiled"])):
         what = "prefill" if i == 0 else f"decode step {i - 1}"
-        lane_err = max(lane_err, _lane_check(a, b, f"deepseek {what} "
+        lane_err = max(lane_err, _lane_check(a, b, f"{label} {what} "
                                                    f"(float32)"))
     del f32
-    bf16 = {lane: _teacher_forced(api, p, cfg, tokens, torch.bfloat16)
+    bf16 = {lane: _teacher_forced(api, p, cfg, tokens, torch.bfloat16,
+                                  prefix=prefix)
             for lane, p in (("codr_matmul", params), ("tiled", tiled))}
     bf16_err = [float((a.float() - b.float()).abs().max())
                 for a, b in zip(bf16["codr_matmul"], bf16["tiled"])]
     if not torch.equal(bf16["codr_matmul"][0], logits):
-        fail("deepseek: the codr_matmul lane's prefill differs from the main "
-             "path's")
+        fail(f"{label}: the codr_matmul lane's prefill differs from the "
+             f"main path's")
     del bf16, tiled
     torch.cuda.empty_cache()
-    say(f"deepseek lanes: codr_matmul vs tiled in float32 max-abs "
+    say(f"{label} lanes: codr_matmul vs tiled in float32 max-abs "
         f"{lane_err:.5f} (gated); in bfloat16, not a check, per step "
         f"{[round(e, 5) for e in bf16_err]}")
-    _peak("lane check", peaks)
+    _peak("lane check", peaks, label)
 
-    # -- where a replayed step's time goes
-    prof = _profile_replay(api, params, cfg, tokens, gen_len, DS_PER_STEP,
-                           label="deepseek")
-    torch.cuda.empty_cache()
-    _peak("profiled replays", peaks)
+    result = {"config": f"{cfg.name}, {cut}",
+              "launches": launches, "launches_by_impl": by_impl,
+              "prefill_launches_by_impl": prefill_by_impl,
+              "captured_calls": captured, "graph_codr_matmul_kernels":
+              in_graph, "calls_per_prefill": per_prefill,
+              "calls_per_step": per_step,
+              "main_path": {"prefill_ms": prefill_ms, "ms_per_step": ms_step,
+                            "eager_ms_per_step": eager_ms,
+                            "decode_s": decode_s, "n_steps": n_steps,
+                            "init_s": init_s, "encode_s": encode_s,
+                            "n_params": n_params,
+                            "packed_bytes": compiled.hbm_bytes(),
+                            "dense_bf16_bytes": compiled.dense_bf16_bytes(),
+                            "bits_per_weight": compiled.bits_per_weight()},
+              "lane_vs_tiled_max_abs_err_f32": lane_err,
+              "lane_vs_tiled_bf16": bf16_err}
+    if profile:
+        result["profile"] = _profile_replay(api, params, cfg, tokens,
+                                            gen_len, per_step, label=label)
+        torch.cuda.empty_cache()
+        _peak("profiled replays", peaks, label)
+    if shapes is not None:
+        say(f"{label} clocks before the per-shape rows: {clocks()}")
+        rows = _shape_rows(args, shapes(params), batch, prompt_len,
+                           label=label)
+        result["per_shape"] = rows
+        if calls is not None:
+            result.update(_sums(label, rows, calls, batch, prompt_len, bits))
+        torch.cuda.empty_cache()
+    if batcher is not None:
+        rng = np.random.default_rng(args.seed + 13)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in PHASE_BATCH_LENS]
+        result["batcher"] = batcher(compiled, cfg, prompts, peaks)
+    result["peak_memory_bytes"] = peaks
+    return result
 
-    # -- the new projection shapes at M = 4 and 128
-    say(f"deepseek clocks before the per-shape rows: {clocks()}")
-    rows = _ds_shape_rows(args, _ds_shapes(params), batch, prompt_len)
-    keys = ("ms", "plain_ms", "library_ms", "bytes", "ops")
-    fwd, pre = ({key: sum(r[key] * sum(_ds_calls(name, decode)
-                                       for name in r["names"])
-                          for r in rows if r["m"] == m)
-                 for key in keys}
-                for m, decode in ((batch, True), (batch * prompt_len, False)))
-    b_ms, b_by = bound(fwd["bytes"], fwd["ops"], BF16_FLOPS)
-    say(f"deepseek codr_matmul one decode step (M={batch}, {DS_PER_STEP} "
-        f"launches, sums of the per-shape rows): routed "
-        f"[{ops.pick_impl(batch, bits)}] {fwd['ms']:.4f} ms, plain "
-        f"{fwd['plain_ms']:.4f} ms, torch.matmul bf16 "
-        f"{fwd['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); prefill "
-        f"(M={batch * prompt_len}, {DS_PER_PREFILL} launches): routed "
-        f"[{ops.pick_impl(batch * prompt_len, bits)}] {pre['ms']:.4f} ms, "
-        f"plain {pre['plain_ms']:.4f} ms, torch.matmul bf16 "
-        f"{pre['library_ms']:.4f} ms [{SMI}]")
-    torch.cuda.empty_cache()
 
-    # -- the continuous batcher on the three pools
-    rng = np.random.default_rng(args.seed + 13)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in DS_BATCH_LENS]
-    batcher = _ds_batcher(compiled, cfg, prompts, peaks)
-    return {"config": f"{cfg.name}, published widths, depth 60 -> "
-                      f"{cfg.n_layers}",
-            "launches": launches, "launches_by_impl": by_impl,
-            "prefill_launches_by_impl": prefill_by_impl,
-            "captured_calls": captured,
-            "calls_per_prefill": DS_PER_PREFILL,
-            "calls_per_step": DS_PER_STEP,
-            "main_path": {"prefill_ms": prefill_ms, "ms_per_step": ms_step,
-                          "eager_ms_per_step": eager_ms,
-                          "decode_s": decode_s, "init_s": init_s,
-                          "encode_s": encode_s, "n_params": n_params,
-                          "packed_bytes": compiled.hbm_bytes(),
-                          "dense_bf16_bytes": compiled.dense_bf16_bytes(),
-                          "bits_per_weight": compiled.bits_per_weight()},
-            "lane_vs_tiled_max_abs_err_f32": lane_err,
-            "lane_vs_tiled_bf16": bf16_err, "profile": prof,
-            "per_step": {**fwd, "bound_ms": b_ms, "bound_by": b_by},
-            "per_prefill_sums": pre, "per_shape": rows, "batcher": batcher,
-            "peak_memory_bytes": peaks}
+def _named_shapes(named: dict) -> dict:
+    """``(K, N) -> [(name, PackedLinear)]`` of ``{name: PackedLinear}``."""
+    shapes: dict = {}
+    for name, pl in named.items():
+        shapes.setdefault((pl.weight.shape[0], pl.out_features), []).append(
+            (name, pl))
+    return shapes
+
+
+def jamba_phase(args) -> dict:
+    """jamba-v0.1-52b at its published widths, depth cut 32 -> 8 (one
+    whole period: seven mamba layers and one attention layer, four MoE
+    and four dense MLPs), served from 4-bit packs; its batcher on the
+    dense pool.  Per-shape rows: mamba's x_proj (8192 -> 288), dt_proj
+    (K = 256), in_proj and the MoE router (4096 -> 16)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_LAYERS)
+
+    def shapes(params):
+        layer = params["stack"]
+        return _named_shapes({
+            "mamba/x_proj": layer["b0"]["mixer"]["x_proj"][0],
+            "mamba/dt_proj": layer["b0"]["mixer"]["dt_proj"][0],
+            "mamba/in_proj": layer["b0"]["mixer"]["in_proj"][0],
+            "moe/router": layer["b1"]["mlp"]["router"][0]})
+    return model_phase(
+        args, "jamba", cfg, f"published widths, depth 32 -> {JAMBA_LAYERS} "
+        f"(one period)", per_prefill=JAMBA_PER_FORWARD,
+        per_step=JAMBA_PER_FORWARD, gen_len=32, shapes=shapes, profile=True,
+        batcher=functools.partial(_ssm_batcher, "jamba",
+                                  per_forward=JAMBA_PER_FORWARD))
+
+
+def xlstm_phase(args) -> dict:
+    """xlstm-350m whole (24 layers); the batcher on the dense pool; the
+    mLSTM ``if_proj`` shape (2048 -> 8)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-350m")
+    per = XLSTM_PER_PERIOD * cfg.n_periods
+
+    def shapes(params):
+        return _named_shapes({
+            "mlstm/if_proj": params["stack"]["b0"]["mixer"]["if_proj"][0]})
+    return model_phase(args, "xlstm", cfg, "published size, no cuts",
+                       per_prefill=per, per_step=per, gen_len=8,
+                       shapes=shapes,
+                       batcher=functools.partial(_ssm_batcher, "xlstm",
+                                                 per_forward=per))
+
+
+def seamless_phase(args) -> dict:
+    """seamless-m4t-medium whole (12 encoder + 12 decoder layers), stub
+    frames (4, 1024, 1024) from the seed; ``run_serve``'s enc-dec loop
+    over the padded prefill cache."""
+    from repro_torch.configs import get_config
+    cfg = get_config("seamless-m4t-medium")
+    per = SEAMLESS_PER_LAYER
+    return model_phase(
+        args, "seamless", cfg, "published size, no cuts",
+        per_prefill=(per["enc"] * cfg.n_encoder_layers
+                     + per["dec_prefill"] * cfg.n_periods),
+        per_step=per["dec_step"] * cfg.n_periods, gen_len=16)
+
+
+def internvl_phase(args) -> dict:
+    """internvl2-26b at its published widths, depth cut 48 -> 4, with a
+    stub vision prefix (4, 1024, 6144) from the seed."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("internvl2-26b"),
+                              n_layers=INTERNVL_LAYERS)
+    return model_phase(args, "internvl", cfg,
+                       f"published widths, depth 48 -> {INTERNVL_LAYERS}",
+                       per_prefill=7 * INTERNVL_LAYERS,
+                       per_step=7 * INTERNVL_LAYERS, gen_len=8)
 
 
 def cost_model_line(compiled) -> None:
@@ -2919,6 +3199,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels[1]["deepseek"] = deepseek_phase(args)
     say(f"deepseek phase: {time.perf_counter() - t0:.1f} s")
+    for name, phase in (("jamba", jamba_phase), ("xlstm", xlstm_phase),
+                        ("seamless", seamless_phase),
+                        ("internvl", internvl_phase)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        kernels[1][name] = phase(args)
+        say(f"{name} phase: {time.perf_counter() - t0:.1f} s")
     cost_model_line(cnn_model)
 
     say(json.dumps({"kernels": kernels}))

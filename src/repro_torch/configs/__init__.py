@@ -2,12 +2,11 @@
 (:mod:`.paper_cnns`) and the transformer architecture registry —
 ``get_config(arch_id)`` + reduced smoke variants, as ``repro.configs``.
 
-Only the configurations the port can run are registered: the dense
-family (qwen2.5-3b, qwen1.5-4b, command-r-plus-104b, qwen3-32b) and the
-MLA / MoE family (deepseek-v2-236b, granite-moe-1b-a400m).  The SSM,
-hybrid, vision and encoder-decoder architectures of the reference
-registry (xlstm-350m, jamba-v0.1-52b, internvl2-26b,
-seamless-m4t-medium) wait for ROADMAP A5.
+The registry holds the reference's ten architectures, in its order:
+the dense family (qwen2.5-3b, qwen1.5-4b, command-r-plus-104b,
+qwen3-32b), the encoder-decoder seamless-m4t-medium, the MLA / MoE
+family (deepseek-v2-236b, granite-moe-1b-a400m), the vision-prefixed
+internvl2-26b, and the SSM and hybrid xlstm-350m and jamba-v0.1-52b.
 """
 from __future__ import annotations
 
@@ -17,22 +16,27 @@ from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.command_r_plus_104b import CONFIG as _command_r
 from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek
 from repro_torch.configs.granite_moe_1b import CONFIG as _granite
+from repro_torch.configs.internvl2_26b import CONFIG as _internvl
+from repro_torch.configs.jamba_v01_52b import CONFIG as _jamba
 from repro_torch.configs.qwen1_5_4b import CONFIG as _qwen15
 from repro_torch.configs.qwen2_5_3b import CONFIG as _qwen25
 from repro_torch.configs.qwen3_32b import CONFIG as _qwen3
+from repro_torch.configs.seamless_m4t_medium import CONFIG as _seamless
+from repro_torch.configs.xlstm_350m import CONFIG as _xlstm
 
 REGISTRY: dict[str, ModelConfig] = {
-    c.name: c for c in [_qwen25, _qwen15, _command_r, _qwen3, _deepseek,
-                        _granite]}
+    c.name: c for c in [
+        _qwen25, _qwen15, _command_r, _qwen3, _seamless,
+        _deepseek, _granite, _internvl, _xlstm, _jamba,
+    ]
+}
 
 ARCH_IDS = list(REGISTRY)
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in REGISTRY:
-        raise KeyError(f"arch {arch!r} is not in the port; it runs {ARCH_IDS} "
-                       f"(the SSM, hybrid, vision and encoder-decoder "
-                       f"architectures wait for ROADMAP A5)")
+        raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
     return REGISTRY[arch]
 
 

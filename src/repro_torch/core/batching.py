@@ -64,6 +64,18 @@ its first layer wrote and holds the retried run to the clean one on all
 three pools.  The graph's first replay re-runs the eager warm-up step
 in the same way.
 
+An SSM mixer's state is different: a step reads the whole state and
+writes it back advanced (``h ← decay·h + drive``), so a re-run over a
+state that its failed attempt already wrote would advance it twice.  The
+SSM models run on the dense pool only (a paged pool raises, as in the
+reference), and with a ``RetryPolicy`` configured the pooled step saves
+the pool's SSM states (``models.lm.recurrent_state``) before its first
+attempt and puts them back before every attempt, so each attempt starts
+from the state a clean step starts from; ``CapturedDecode`` does the
+same around its eager warm-up.  ``tests/test_torch_ssm.py`` fails a step
+after its first layer on the jamba and xlstm pools and holds the retried
+run to the clean one.
+
 The async chassis (condition-variable worker, lazy start, stop/drain/
 restart, exception isolation) is :class:`repro_torch.core.serving
 .AsyncWorkerLoop`, shared with ``CodrBatchServer``.
@@ -187,7 +199,8 @@ class ContinuousBatcher(AsyncWorkerLoop):
     ``.params`` tree is served through the backend registry, so every
     projection runs on the ``codr_matmul`` kernel on the card).  The
     params must live on ``device`` — the card unless the caller passes
-    ``device="cpu"``.  Decoder-only families only.
+    ``device="cpu"``.  Decoder-only families only, without a frontend;
+    SSM and hybrid models on the dense pool only.
 
     The worker admits up to ``prefill_per_step`` queued requests per
     iteration (each prefilled at its own prompt length, outside the
@@ -235,7 +248,7 @@ class ContinuousBatcher(AsyncWorkerLoop):
                 f"(got family={cfg.family!r}, frontend={cfg.frontend!r})")
         super().__init__()
         from repro_torch.models import cache as cache_mod  # lazy: core → models
-        from repro_torch.models import get_model
+        from repro_torch.models import get_model, lm
         from repro_torch.models.lm import CapturedDecode
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -273,6 +286,8 @@ class ContinuousBatcher(AsyncWorkerLoop):
                 self._api.init_cache(cfg, 1, max_len, device="meta"),
                 self._api.init_cache(cfg, 2, max_len, device="meta"))
         self._pool = self._new_pool()
+        # the buffers a re-run step must put back first (module docstring)
+        self._recurrent = lm.recurrent_state(cfg, self._pool)
         # the pooled step on the card: one graph captured over the pool
         self._graph = (None if eager or self.device.type != "cuda" else
                        CapturedDecode(self._params, self._pool, cfg, n_slots,
@@ -588,10 +603,15 @@ class ContinuousBatcher(AsyncWorkerLoop):
         for i, s in active:
             toks[i] = s.last_tok
             poss[i] = s.pos
+        # a re-run recomputes the step over the KV rows the failed
+        # attempt wrote (the same bits), from the SSM states it started
+        # from (module docstring)
+        state = self._recurrent if self._retry_policy is not None else []
+        saved = [t.clone() for t in state]
 
         def _attempt():
-            # a re-run recomputes the step over the rows the failed
-            # attempt wrote: the same bits (module docstring)
+            for t, before in zip(state, saved):
+                t.copy_(before)
             self._fire("batcher.decode")
             logits, _ = self._step_fn(self._params, self._pool, toks, poss)
             return _host_rows(logits)

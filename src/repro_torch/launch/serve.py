@@ -1,6 +1,6 @@
 """Serving driver: batched prefill + greedy decode from CoDR-compressed
 weights — ``run_serve`` and ``run_serve_continuous`` of
-``repro.launch.serve``, decoder-only branch.
+``repro.launch.serve``.
 
 ``use_codr=True`` compiles the params tree onto the packed
 representation (:func:`repro_torch.api.compile_params`), so every
@@ -10,11 +10,20 @@ reported weight bytes are measured on the stored packs.  Runs on the
 card unless the caller passes ``device="cpu"``; there the decode step is
 captured once as a CUDA graph and replayed (prefill stays eager).
 
-``arch`` (``--arch``) names any configuration the port registers —
-the dense family (qwen2.5-3b, qwen1.5-4b, qwen3-32b,
-command-r-plus-104b) and the MLA / MoE family (deepseek-v2-236b,
-granite-moe-1b-a400m); as in the reference, a run serves its smoke
-variant.
+``arch`` (``--arch``) names any of the ten configurations of the
+registry — the dense family (qwen2.5-3b, qwen1.5-4b, qwen3-32b,
+command-r-plus-104b), the MLA / MoE family (deepseek-v2-236b,
+granite-moe-1b-a400m), the SSM and hybrid models (xlstm-350m,
+jamba-v0.1-52b), the vision-prefixed internvl2-26b and the
+encoder-decoder seamless-m4t-medium; as in the reference, a run serves
+its smoke variant.  A frontend or encoder-decoder model gets a random
+``(batch, frontend_seq, d_model)`` prefix, the frontend stub.  The
+decoder-only loop replays the prompt through decode on a fresh cache
+(so a frontend model's decode never sees its prefix, as in the
+reference); the encoder-decoder loop continues from the prefill cache,
+its self-attention KV padded out to ``prompt_len + gen_len`` and its
+cross-attention KV kept.  The continuous batcher serves decoder-only
+models without a frontend.
 
 ``packed_ckpt=PATH`` (``--packed-ckpt``) boots from a packed checkpoint
 artifact (:func:`repro_torch.api.save_packed`): if PATH exists it is
@@ -43,7 +52,8 @@ from repro_torch.core.serving import codr_serving_stats
 from repro_torch.core.tree import leaves_with_path
 from repro_torch.models import get_model
 
-__all__ = ["greedy_decode", "run_serve", "run_serve_continuous", "main"]
+__all__ = ["greedy_decode", "pad_self_cache", "encdec_decode", "run_serve",
+           "run_serve_continuous", "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -87,15 +97,59 @@ def greedy_decode(api, params, tokens: torch.Tensor, cfg, gen_len: int, *,
     return gen, cache, n_steps
 
 
+def pad_self_cache(cache: dict, total: int) -> dict:
+    """An encoder-decoder prefill cache with its self-attention KV padded
+    with zeros out to ``total`` positions (decode writes the positions
+    from the prompt's length on; the tail stays masked until written) and
+    its cross-attention KV kept.  The padded halves are new tensors."""
+    pad = total - cache["self"][0].shape[2]
+    if pad <= 0:
+        return cache
+    return {**cache, "self": tuple(
+        torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
+        for kv in cache["self"])}
+
+
+def encdec_decode(api, params, cache, logits: torch.Tensor, cfg,
+                  prompt_len: int, gen_len: int, *, eager: bool = False):
+    """Greedy decode continuing an encoder-decoder prefill: the first
+    token from the prefill ``logits``, then ``gen_len - 1`` steps over
+    ``cache`` (already padded to ``prompt_len + gen_len``) at positions
+    ``prompt_len`` on.  Returns ``(gen (B, gen_len) int64, cache,
+    decode_step calls)``.  On the card the step is captured once over
+    ``cache`` and replayed, as in :func:`greedy_decode`."""
+    from repro_torch.models.lm import CapturedDecode
+    batch = logits.shape[0]
+    total = prompt_len + gen_len
+    step = (None if eager or logits.device.type != "cuda" else
+            CapturedDecode(params, cache, cfg, batch, device=logits.device))
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    out_tokens = [tok] if gen_len > 0 else []
+    n_steps = 0
+    for i in range(prompt_len, total - 1):
+        if step is None:
+            logits, cache = api.decode_step(params, cache, tok, i, cfg)
+        else:
+            logits = step(tok, i)
+        n_steps += 1
+        tok = torch.argmax(logits, dim=-1)
+        out_tokens.append(tok)
+    gen = (torch.stack(out_tokens, 1) if out_tokens else
+           torch.zeros((batch, 0), dtype=torch.int64, device=logits.device))
+    return gen, cache, n_steps
+
+
 def run_serve(*, arch: str = "qwen2.5-3b", batch: int = 4,
               prompt_len: int = 32, gen_len: int = 32, use_codr: bool = False,
               codr_unique: int = 16, codr_backend: str = "codr_matmul",
               verbose: bool = True, device=None) -> dict:
     """One serving run: prefill + greedy decode on the smoke variant of
-    ``arch``, params and prompt drawn from a generator seeded 0.  Returns
-    the reference's metrics dict (timings, generated tokens, and — under
-    ``use_codr`` — the measured packed-representation bytes).  The decode
-    loop replays a captured step on the card (:func:`greedy_decode`)."""
+    ``arch``, params, prompt and prefix drawn from a generator seeded 0.
+    Returns the reference's metrics dict (timings, generated tokens, the
+    encoder-decoder's padded self-cache length, and — under ``use_codr``
+    — the measured packed-representation bytes).  The decode loop
+    replays a captured step on the card (:func:`greedy_decode`,
+    :func:`encdec_decode`)."""
     dev = resolve_device(device)
     cfg = smoke_variant(get_config(arch))
     api = get_model(cfg)
@@ -113,14 +167,27 @@ def run_serve(*, arch: str = "qwen2.5-3b", batch: int = 4,
 
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=dev)
+    batch_in = {"tokens": tokens}
+    if cfg.frontend or cfg.family == "encdec":
+        batch_in["prefix"] = torch.randn(
+            (batch, cfg.frontend_seq, cfg.d_model), generator=gen,
+            device=dev)
 
     t0 = time.monotonic()
-    logits, cache = api.prefill(params, {"tokens": tokens}, cfg)
+    logits, cache = api.prefill(params, batch_in, cfg)
     _sync(dev)
     t_prefill = time.monotonic() - t0
 
+    cache_self_len = None
     t0 = time.monotonic()
-    out, cache, n_steps = greedy_decode(api, params, tokens, cfg, gen_len)
+    if cfg.family == "encdec":
+        cache = pad_self_cache(cache, prompt_len + gen_len)
+        cache_self_len = int(cache["self"][0].shape[2])
+        out, cache, n_steps = encdec_decode(api, params, cache, logits, cfg,
+                                            prompt_len, gen_len)
+    else:
+        out, cache, n_steps = greedy_decode(api, params, tokens, cfg,
+                                            gen_len)
     _sync(dev)
     t_decode = time.monotonic() - t0
     gen_np = out.to("cpu", torch.int32).numpy()
@@ -142,7 +209,7 @@ def run_serve(*, arch: str = "qwen2.5-3b", batch: int = 4,
         "prefill_s": t_prefill, "decode_s": t_decode,
         "n_decode_steps": n_steps,
         "ms_per_tok": ms_per_tok,
-        "cache_self_len": None,
+        "cache_self_len": cache_self_len,
         "kv_bytes": kv_bytes,
     }
     if compiled is not None:

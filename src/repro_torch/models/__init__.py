@@ -1,6 +1,6 @@
-"""Model zoo facade of the port — the decoder-only branch of
-``repro.models.get_model`` (the dense, MLA and MoE families, prologue
-layers included):
+"""Model zoo facade of the port — ``repro.models.get_model``: one API
+over the decoder-only families (dense, MLA and MoE, SSM and hybrid,
+frontend-fed) and the encoder-decoder family:
 
     api = get_model(cfg)
     params = api.init_params(gen, cfg)            # gen: torch.Generator
@@ -8,7 +8,9 @@ layers included):
     cache = api.init_cache(cfg, batch, seq, device=...)
     logits, cache = api.decode_step(params, cache, token, pos, cfg)
 
-The encoder-decoder branch waits for ROADMAP A5.
+``batch`` holds ``"tokens"`` and, for a frontend or an encoder-decoder
+model, ``"prefix"``: the frontend stub's precomputed embeddings (the
+encoder's frames for the encoder-decoder family).
 """
 from __future__ import annotations
 
@@ -16,16 +18,30 @@ import types
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 __all__ = ["get_model"]
 
 
 def get_model(cfg) -> types.SimpleNamespace:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet "
-            f"(ROADMAP A5)")
+        def prefill(params, batch, cfg):
+            return encdec.prefill(params, batch["prefix"], batch["tokens"],
+                                  cfg)
+
+        def init_cache(cfg, batch, seq, dtype=torch.bfloat16, paged=None,
+                       device=None):
+            if paged is not None:
+                raise NotImplementedError(
+                    "paged KV cache is decoder-only for now "
+                    "(enc-dec caches carry a cross-attention half)")
+            return encdec.init_cache(cfg, batch, seq,
+                                     enc_seq=cfg.frontend_seq or seq,
+                                     dtype=dtype, device=device)
+
+        return types.SimpleNamespace(
+            init_params=encdec.init_params, prefill=prefill,
+            decode_step=encdec.decode_step, init_cache=init_cache)
 
     def prefill(params, batch, cfg):
         return lm.prefill(params, batch["tokens"], cfg,

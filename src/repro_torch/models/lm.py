@@ -15,9 +15,15 @@ cache, written in place).  Where the reference runs
 cache as a CUDA graph and replays it (:class:`CapturedDecode`); prefill
 stays eager.
 
-Ported: GQA and MLA attention mixers, dense MLPs and MoE layers (routed
-plus shared experts), prologue layers.  The SSM mixers (mamba, mLSTM,
-sLSTM) wait for ROADMAP A5; the training forward and loss for A11.
+Layers are organized in *periods*: one period is ``cfg.block_pattern``
+(Jamba's ``(m, m, m, attn, m, m, m, m)``, xLSTM's ``(mlstm, slstm)``),
+repeated ``n_periods`` times.  Ported: the GQA and MLA attention mixers,
+the SSM mixers (mamba, mLSTM, sLSTM; :mod:`repro_torch.models.ssm`),
+dense MLPs and MoE layers (routed plus shared experts), prologue layers
+and a ``prefix`` of precomputed frontend embeddings.  An SSM mixer's
+cache is its recurrent state, stacked over the periods like a KV pair
+and, like it, rewritten in place by a decode step.  The training forward
+and loss wait for ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -27,36 +33,37 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.core.tree import map_leaves
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.common import (DEFAULT_DTYPE, embed_init,
                                        embedding_lookup, norm_apply,
                                        norm_init, unembed)
 
 __all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
-           "CapturedDecode"]
-
-
-def _check_supported(cfg) -> list[tuple[str, str]]:
-    """The period plan, or ``NotImplementedError`` naming the ROADMAP item
-    for a mixer the port does not run yet."""
-    plan = cfg.layer_plan()
-    for kind, _ in plan:
-        if kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {kind!r} is not ported yet (ROADMAP A5: "
-                f"the SSM mixers)")
-    return plan
+           "recurrent_state", "CapturedDecode"]
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen: torch.Generator, ffn: str, cfg, lead: tuple) -> dict:
-    """One attention layer's params (stacked over ``lead``)."""
-    mixer = attn.mla_init if cfg.use_mla else attn.gqa_init
+def _init_mixer(gen: torch.Generator, kind: str, cfg, lead: tuple):
+    if kind == "attn":
+        fn = attn.mla_init if cfg.use_mla else attn.gqa_init
+    else:
+        fn = {"mamba": ssm.mamba_init, "mlstm": ssm.mlstm_init,
+              "slstm": ssm.slstm_init}.get(kind)
+        if fn is None:
+            raise ValueError(kind)
+    return fn(gen, cfg, lead=lead)
+
+
+def _init_layer(gen: torch.Generator, spec, cfg, lead: tuple) -> dict:
+    """One layer's params (stacked over ``lead``): the mixer of ``spec``
+    and its MLP or MoE, if the plan gives it one."""
+    kind, ffn = spec
     p = {"norm1": norm_init(cfg.d_model, cfg.norm_type, lead=lead,
                             device=gen.device),
-         "mixer": mixer(gen, cfg, lead=lead)}
+         "mixer": _init_mixer(gen, kind, cfg, lead)}
     if ffn in ("dense", "moe"):
         p["norm2"] = norm_init(cfg.d_model, cfg.norm_type, lead=lead,
                                device=gen.device)
@@ -73,13 +80,13 @@ def init_params(gen: torch.Generator, cfg) -> dict:
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model),
         "final_norm": norm_init(cfg.d_model, cfg.norm_type,
                                 device=gen.device),
-        "stack": {f"b{i}": _init_layer(gen, ffn, cfg, lead)
-                  for i, (_, ffn) in enumerate(_check_supported(cfg))},
+        "stack": {f"b{i}": _init_layer(gen, spec, cfg, lead)
+                  for i, spec in enumerate(cfg.layer_plan())},
     }
     if not cfg.tied_embeddings:
         params["out_embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model)
     if cfg.n_dense_layers:
-        params["prologue"] = [_init_layer(gen, "dense", cfg, ())
+        params["prologue"] = [_init_layer(gen, ("attn", "dense"), cfg, ())
                               for _ in range(cfg.n_dense_layers)]
     return params
 
@@ -88,44 +95,71 @@ def init_params(gen: torch.Generator, cfg) -> dict:
 # caches
 # ---------------------------------------------------------------------------
 
-def _mixer_cache(cfg, batch: int, seq: int, dtype, paged, device,
-                 lead: tuple):
-    """One attention mixer's cache (stacked over ``lead``): GQA ``(k,
-    v)`` or MLA ``(ckv, krot)``, contiguous or paged."""
+def _mixer_cache(kind: str, cfg, batch: int, seq: int, dtype, paged,
+                 device, lead: tuple):
+    """One mixer's cache (stacked over ``lead``): GQA ``(k, v)`` or MLA
+    ``(ckv, krot)``, contiguous or paged, or an SSM mixer's state."""
+    if kind == "attn":
+        if paged is not None:
+            fn = (attn.mla_cache_init_paged if cfg.use_mla
+                  else attn.gqa_cache_init_paged)
+            return fn(cfg, paged, dtype, lead=lead, device=device)
+        fn = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
+        return fn(cfg, batch, seq, dtype, lead=lead, device=device)
     if paged is not None:
-        fn = (attn.mla_cache_init_paged if cfg.use_mla
-              else attn.gqa_cache_init_paged)
-        return fn(cfg, paged, dtype, lead=lead, device=device)
-    fn = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
-    return fn(cfg, batch, seq, dtype, lead=lead, device=device)
+        raise NotImplementedError(
+            f"paged KV cache covers attention mixers only, got {kind!r} "
+            f"({cfg.name}) — SSM states have no sequence axis to page")
+    if kind == "mamba":
+        return ssm.mamba_state_init(cfg, batch, dtype, lead=lead,
+                                    device=device)
+    if kind == "mlstm":
+        return ssm.mlstm_state_init(cfg, batch, lead=lead, device=device)
+    if kind == "slstm":
+        return ssm.slstm_state_init(cfg, batch, lead=lead, device=device)
+    raise ValueError(kind)
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=DEFAULT_DTYPE, paged=None,
                device=None) -> dict:
-    """Zeroed KV cache on ``device`` (the card unless the caller names
-    another): ``{"stack": {"b<i>": pair}}`` with each pair stacked over
-    ``n_periods`` — GQA ``(k, v)`` of shape ``(n_periods, batch, seq,
-    n_kv_heads, head_dim)``, MLA ``(ckv, krot)`` of ``(n_periods, batch,
-    seq, kv_lora_rank / rope_head_dim)`` — plus ``"prologue"``, a list of
-    unstacked pairs, when the model has prologue layers.  With ``paged``
-    (a :class:`repro_torch.models.cache.PagedSpec`) every pair is two
-    :class:`PagedKV` pools (``batch`` must equal ``paged.n_slots``,
-    ``seq`` its ``max_len``)."""
+    """Zeroed cache on ``device`` (the card unless the caller names
+    another): ``{"stack": {"b<i>": state}}`` with each layer's state
+    stacked over ``n_periods`` — GQA ``(k, v)`` of shape ``(n_periods,
+    batch, seq, n_kv_heads, head_dim)``, MLA ``(ckv, krot)`` of
+    ``(n_periods, batch, seq, kv_lora_rank / rope_head_dim)``, mamba
+    ``(conv_tail, h)``, mLSTM ``(C, n, m)``, sLSTM ``(c, n, h, m)`` (the
+    SSM states float32, the conv tail in ``dtype``) — plus
+    ``"prologue"``, a list of unstacked pairs, when the model has
+    prologue layers.  With ``paged`` (a
+    :class:`repro_torch.models.cache.PagedSpec`) every attention pair is
+    two :class:`PagedKV` pools (``batch`` must equal ``paged.n_slots``,
+    ``seq`` its ``max_len``); an SSM mixer raises
+    ``NotImplementedError``."""
     if paged is not None and (batch != paged.n_slots
                               or seq != paged.max_len):
         raise ValueError(
             f"paged cache geometry mismatch: batch={batch}/seq={seq} vs "
             f"spec n_slots={paged.n_slots}/max_len={paged.max_len}")
-    plan = _check_supported(cfg)
     dev = resolve_device(device)
-    out = {"stack": {f"b{i}": _mixer_cache(cfg, batch, seq, dtype, paged,
-                                           dev, (cfg.n_periods,))
-                     for i in range(len(plan))}}
+    out = {"stack": {f"b{i}": _mixer_cache(kind, cfg, batch, seq, dtype,
+                                           paged, dev, (cfg.n_periods,))
+                     for i, (kind, _) in enumerate(cfg.layer_plan())}}
     if cfg.n_dense_layers:
-        out["prologue"] = [_mixer_cache(cfg, batch, seq, dtype, paged, dev,
-                                        ())
+        out["prologue"] = [_mixer_cache("attn", cfg, batch, seq, dtype,
+                                        paged, dev, ())
                            for _ in range(cfg.n_dense_layers)]
     return out
+
+
+def recurrent_state(cfg, cache) -> list[torch.Tensor]:
+    """The buffers of ``cache`` that a decode step both reads and
+    rewrites whole: the SSM mixers' states.  Running a step twice
+    advances them twice (a KV row is only stored again), so a caller that
+    re-runs a step saves them first and puts them back."""
+    if cfg.family == "encdec":
+        return []
+    return [t for i, (kind, _) in enumerate(cfg.layer_plan())
+            if kind != "attn" for t in cache["stack"][f"b{i}"]]
 
 
 # ---------------------------------------------------------------------------
@@ -139,16 +173,31 @@ def _layer(tree, i: int):
     return map_leaves(lambda leaf: leaf[i], tree)
 
 
-def _block_apply(lp, x, cfg, mode, cache, pos, positions):
-    """One attention block (GQA or MLA) and its MLP or MoE, if the plan
-    gives it one."""
+def _block_apply(lp, x, spec, cfg, mode, cache, pos, positions):
+    """One block: the mixer of ``spec`` (attention, GQA or MLA, or an SSM
+    mixer) and its MLP or MoE, if the plan gives it one."""
+    kind, _ = spec
     h = norm_apply(x, lp["norm1"], cfg.norm_type, f32=cfg.norm_f32)
-    if mode == "decode":
-        fn = attn.mla_decode if cfg.use_mla else attn.gqa_decode
-        out, new_cache = fn(lp["mixer"], h, cfg, cache, pos)
+    mixer = lp["mixer"]
+    if kind == "attn":
+        if mode == "decode":
+            fn = attn.mla_decode if cfg.use_mla else attn.gqa_decode
+            out, new_cache = fn(mixer, h, cfg, cache, pos)
+        else:
+            fn = attn.mla_forward if cfg.use_mla else attn.gqa_forward
+            out, new_cache = fn(mixer, h, cfg, positions)
+    elif kind == "mamba":
+        if mode == "decode":
+            out, new_cache = ssm.mamba_decode(mixer, h, cfg, cache)
+        else:
+            out, new_cache = ssm.mamba_forward(mixer, h, cfg,
+                                               chunk=cfg.mamba_chunk)
+    elif kind in ("mlstm", "slstm"):
+        fn = ssm.mlstm_forward if kind == "mlstm" else ssm.slstm_forward
+        out, new_cache = fn(mixer, h, cfg,
+                            state=cache if mode == "decode" else None)
     else:
-        fn = attn.mla_forward if cfg.use_mla else attn.gqa_forward
-        out, new_cache = fn(lp["mixer"], h, cfg, positions)
+        raise ValueError(kind)
     x = x + out
     if "mlp" in lp:
         h = norm_apply(x, lp["norm2"], cfg.norm_type, f32=cfg.norm_f32)
@@ -168,12 +217,13 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
                     out (each pair stacked over the layers; the prologue
                     layers' pairs in a list).
     mode='decode' : S == 1, attends into ``cache`` at ``pos``, writing the
-                    new KV row into it in place; returns it.
+                    new KV rows and SSM states into it in place; returns
+                    it.
     """
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r}: the port runs prefill "
                                   f"and decode (training is ROADMAP A11)")
-    plan = _check_supported(cfg)
+    plan = cfg.layer_plan()
     x = embedding_lookup(params["embed"], tokens, DEFAULT_DTYPE)
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
@@ -184,19 +234,20 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
     new_prologue = []
     for i, lp in enumerate(params.get("prologue", [])):
         c = cache["prologue"][i] if mode == "decode" else None
-        x, nc = _block_apply(lp, x, cfg, mode, c, pos, positions)
+        x, nc = _block_apply(lp, x, ("attn", "dense"), cfg, mode, c, pos,
+                             positions)
         new_prologue.append(nc)
 
     caches: dict[str, list] = {f"b{i}": [] for i in range(len(plan))}
     for li in range(cfg.n_periods):
         period = _layer(params["stack"], li)
-        for i in range(len(plan)):
+        for i, spec in enumerate(plan):
             name = f"b{i}"
             layer_cache = None
             if mode == "decode":
                 layer_cache = tuple(t[li] for t in cache["stack"][name])
-            x, nc = _block_apply(period[name], x, cfg, mode, layer_cache,
-                                 pos, positions)
+            x, nc = _block_apply(period[name], x, spec, cfg, mode,
+                                 layer_cache, pos, positions)
             if mode == "prefill":
                 caches[name].append(nc)
 
@@ -232,10 +283,15 @@ def decode_step(params, cache, token, pos, cfg):
 class CapturedDecode:
     """``decode_step(params, cache, token, pos, cfg)`` captured once as a
     CUDA graph over one cache, and replayed — the port's counterpart of
-    the reference's ``jax.jit(decode_step)``.
+    the reference's ``jax.jit(decode_step)``.  The step is the model
+    family's: this module's for the decoder-only families,
+    :func:`repro_torch.models.encdec.decode_step` over the ``{"self",
+    "cross"}`` cache for the encoder-decoder family.
 
     The graph's static state is the cache (every step writes it in
-    place: the stack's layers and the prologue's alike) and three tensors of this object: ``token`` and ``pos``,
+    place: the stack's layers and the prologue's alike, KV rows and SSM
+    states; the encoder-decoder's cross half is only read) and three
+    tensors of this object: ``token`` and ``pos``,
     ``(batch,)`` int64 filled before each replay (positions are always
     per row here, never a Python int, which a graph would bake in), and
     ``logits``, ``(batch, vocab)``, which every call returns and the next
@@ -247,10 +303,12 @@ class CapturedDecode:
     shared-memory attributes and grows ``codr_matmul``'s split-K scratch,
     none of which may happen inside a capture), the capture, then the
     replay that serves the call.  The warm-up and the replay write the
-    same rows twice with the same bits (see ``repro_torch.core.batching``
-    on re-run steps).  A failed capture raises; there is no eager
-    fallback on the card.  CPU callers run :func:`decode_step`
-    themselves.
+    same KV rows twice with the same bits (see
+    ``repro_torch.core.batching`` on re-run steps); the SSM states
+    (:func:`recurrent_state`), which a second run would advance again,
+    are saved before the warm-up and put back after it, so the replay
+    advances them once.  A failed capture raises; there is no eager
+    fallback on the card.  CPU callers run the eager step themselves.
 
     The split-K scratch that the warm-up grows and the graph reads and
     writes at every replay is this object's own
@@ -266,6 +324,11 @@ class CapturedDecode:
 
     def __init__(self, params, cache, cfg, batch: int, *, device=None):
         self.params, self.cfg = params, cfg
+        if cfg.family == "encdec":
+            from repro_torch.models import encdec
+            self._step = encdec.decode_step
+        else:
+            self._step = decode_step
         self.device = resolve_device(device)
         if self.device.type != "cuda":
             raise ValueError(f"CapturedDecode needs a CUDA device, got "
@@ -291,15 +354,20 @@ class CapturedDecode:
         from repro_torch.kernels.codr_matmul import ops as mm_ops
         stream = self._stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
+        state = recurrent_state(self.cfg, self.cache)
         with mm_ops.scratch_pool(self._scratch):
             with torch.cuda.stream(stream):
-                decode_step(self.params, self.cache, self.token, self.pos,
-                            self.cfg)
+                saved = [t.clone() for t in state]
+                self._step(self.params, self.cache, self.token, self.pos,
+                           self.cfg)
+                for t, before in zip(state, saved):
+                    t.copy_(before)
+                del saved
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=stream,
                                   capture_error_mode="thread_local"):
-                logits, _ = decode_step(self.params, self.cache, self.token,
-                                        self.pos, self.cfg)
+                logits, _ = self._step(self.params, self.cache, self.token,
+                                       self.pos, self.cfg)
         self.graph, self.logits = graph, logits
         self.captures += 1
 

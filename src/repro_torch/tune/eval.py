@@ -104,8 +104,9 @@ def transformer_quality(arch: str, *, plan=None,
                         seed: int = 0, device=None) -> dict:
     """Perplexity proxy for one ``configs/`` zoo arch: mean absolute
     logit error + next-token argmax agreement of the packed prefill vs
-    the dense prefill on the smoke variant, its weights and tokens drawn
-    from a ``torch.Generator`` seeded ``seed`` on ``device``.
+    the dense prefill on the smoke variant, its weights, tokens and (for
+    a frontend or encoder-decoder model) the stub prefix drawn from a
+    ``torch.Generator`` seeded ``seed`` on ``device``.
     ``backend="tiled"`` is the bit-exact decode-then-matmul lane; pass
     ``"codr_matmul"`` to measure through the fused kernel instead."""
     import repro_torch.api as codr
@@ -114,10 +115,6 @@ def transformer_quality(arch: str, *, plan=None,
     from repro_torch.models import get_model
 
     cfg = smoke_variant(get_config(arch))
-    if cfg.frontend or cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the prefix-fed (frontend / encoder-decoder) "
-            f"models are not ported yet (ROADMAP A5)")
     dev = resolve_device(device)
     api = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -129,6 +126,10 @@ def transformer_quality(arch: str, *, plan=None,
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=dev)
     batch_in = {"tokens": tokens}
+    if cfg.frontend or cfg.family == "encdec":
+        batch_in["prefix"] = torch.randn(
+            (batch, cfg.frontend_seq, cfg.d_model), generator=gen,
+            device=dev)
     dense_logits, _ = api.prefill(params, batch_in, cfg)
     packed_logits, _ = api.prefill(cp.params, batch_in, cfg)
     d = _host(dense_logits)

@@ -12,7 +12,10 @@ binding a new cache forces a new capture, and the launch counters tick
 in the warm-up only; the same replayed == eager for the smoke
 deepseek-v2-236b (a prologue MLA layer, then MLA + MoE: the routing,
 the grouped expert compute and the decode of the expert stacks all run
-inside the graph).  The smoke variant of
+inside the graph); for the smoke SSM models jamba-v0.1-52b and
+xlstm-350m (the warm-up step does not advance the recurrent state
+twice) and, over its padded prefill cache, seamless-m4t-medium.  The
+smoke variant of
 qwen2.5-3b with three layers, weights from a seeded generator, packed
 onto ``codr_matmul``.  Nothing here imports JAX, so on the card:
 
@@ -37,8 +40,9 @@ POOLS = {"dense": {}, "bf16-paged": dict(kv_page_size=4),
 
 
 def _model(device, arch="qwen2.5-3b", n_layers=3):
-    cfg = dataclasses.replace(smoke_variant(get_config(arch)),
-                              n_layers=n_layers)
+    cfg = smoke_variant(get_config(arch))
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     api = get_model(cfg)
     params = api.init_params(torch.Generator(device=device).manual_seed(0),
                              cfg)
@@ -269,3 +273,72 @@ def test_cuda_deepseek_replay_equals_eager(kv):
     for h, e in zip(handles, e_handles):
         for a, b in zip(h.logits, e.logits):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
+def test_cuda_ssm_replay_equals_eager(arch):
+    """The smoke SSM models (jamba: seven mamba layers, attention and
+    MoE; xlstm: mLSTM and sLSTM): ``greedy_decode``'s loop replayed
+    equals eager bit for bit at every step, so the capture's eager
+    warm-up step does not advance the recurrent state a second time; the
+    batcher's dense pool too, captured == eager."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph is captured and "
+                    "replayed on the card; the CPU runs the eager step)")
+    cfg, api, params = _model("cuda", arch, n_layers=None)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 5), device="cuda",
+                           generator=torch.Generator(device="cuda"
+                                                     ).manual_seed(3))
+    eager = _step_logits(api, params, tokens, cfg, 6, captured=False)
+    replay = _step_logits(api, params, tokens, cfg, 6, captured=True)
+    assert len(eager) == len(replay) == 10
+    for i, (a, b) in enumerate(zip(eager, replay)):
+        assert torch.equal(a, b), f"step {i}"
+    prompts = _prompts(cfg, [3, 7, 5, 9], seed=7)
+    runs = {}
+    for mode in ("eager", "captured"):
+        cb = ContinuousBatcher(params, cfg, n_slots=3, max_len=24,
+                               record_logits=True, eager=mode == "eager")
+        handles = [cb.submit(p, max_new_tokens=5) for p in prompts]
+        runs[mode] = (cb, handles, [h.result(timeout=T) for h in handles])
+        cb.stop_async()
+    cb, handles, outs = runs["captured"]
+    assert cb._graph.captures == 1 and cb._graph.replays == cb.steps_run
+    _, e_handles, e_outs = runs["eager"]
+    assert outs == e_outs
+    for h, e in zip(handles, e_handles):
+        for a, b in zip(h.logits, e.logits):
+            np.testing.assert_array_equal(a, b)
+    for p, out in zip(prompts, outs):
+        assert out == cb.generate_reference(p, max_new_tokens=5)[0]
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_replay_equals_eager():
+    """seamless-m4t-medium's smoke variant: ``encdec_decode`` (``run_serve``'s
+    enc-dec loop over the padded prefill cache) replayed equals eager in
+    tokens and per-step logits; the cross half is only read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph is captured and "
+                    "replayed on the card; the CPU runs the eager step)")
+    from repro_torch.launch.serve import encdec_decode, pad_self_cache
+    cfg, api, params = _model("cuda", "seamless-m4t-medium", n_layers=None)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 5),
+                                     device="cuda", generator=gen),
+             "prefix": torch.randn((4, cfg.frontend_seq, cfg.d_model),
+                                   device="cuda", generator=gen)}
+    outs, crosses = [], []
+    for eager in (True, False):
+        logits, cache = api.prefill(params, batch, cfg)
+        cache = pad_self_cache(cache, 5 + 6)
+        cross = [t.clone() for t in cache["cross"]]
+        gen_tok, cache, n = encdec_decode(api, params, cache, logits, cfg,
+                                          5, 6, eager=eager)
+        assert n == 5
+        assert all(torch.equal(a, b) for a, b in zip(cache["cross"], cross))
+        outs.append((gen_tok, [t.clone() for t in cache["self"]]))
+    (e_tok, e_self), (r_tok, r_self) = outs
+    assert torch.equal(e_tok, r_tok)
+    assert all(torch.equal(a, b) for a, b in zip(e_self, r_self))

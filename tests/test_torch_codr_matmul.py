@@ -467,6 +467,42 @@ def test_sm90_splits_tables_that_bf16_does_not_hold(bits, cuda_device):
                                        **F32)
 
 
+# (K, N) of the narrow projections the SSM models bring: xlstm-350m's
+# if_proj, jamba-v0.1-52b's router, x_proj, dt_proj (K = 256) and
+# in_proj, at published widths
+NARROW_KN = [(2048, 8), (4096, 16), (8192, 288), (256, 8192),
+             (4096, 16384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("kn", NARROW_KN, ids=lambda kn: f"{kn[0]}x{kn[1]}")
+def test_kernel_takes_the_narrow_projection_shapes(kn, m, cuda_device):
+    """The instance the routing rule gives the SSM models' narrow and
+    K = 256 projections at decode (M = 4, ``splitk``) and prefill (M =
+    128, ``sm90``), 4-bit packs of 16 levels: within the f32 tolerance
+    of the plain version (N is a whole number of words but not of the
+    column tiles)."""
+    k, n = kn
+    impl = tops.pick_impl(m, 4)
+    rng = np.random.default_rng(k + n + m)
+    q, s = _q(rng, k, n, 16)
+    w = tcl.pack_unique(torch.from_numpy(q).to(cuda_device), s,
+                        dtype=torch.float32)
+    assert w.bits == 4 and tuple(w.packed.shape) == (k, n // 8)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda_device)
+    args = (x, w.packed, w.table, w.scale.reshape(-1))
+    before = tops.launches_by_impl[impl]
+    y = tops.codr_matmul_cuda(*args, bits=4, n=n)
+    torch.cuda.synchronize()
+    assert tops.launches_by_impl[impl] == before + 1
+    assert y.shape == (m, n)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yr = tref.codr_matmul_ref(*args, bits=4, n=n)
+    np.testing.assert_allclose(y.cpu().numpy(), yr.cpu().numpy(), **F32)
+
+
 @pytest.mark.cuda
 def test_kernel_runs_the_packed_projection_lane(cuda_device):
     rng = np.random.default_rng(16)

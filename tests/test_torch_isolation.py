@@ -52,7 +52,11 @@ def test_port_modules_cover_the_slice():
               "repro_torch.configs.command_r_plus_104b",
               "repro_torch.tune", "repro_torch.tune.plan",
               "repro_torch.tune.autotune", "repro_torch.tune.eval",
-              "repro_torch.launch.tune"):
+              "repro_torch.launch.tune", "repro_torch.models.ssm",
+              "repro_torch.models.encdec", "repro_torch.configs.xlstm_350m",
+              "repro_torch.configs.jamba_v01_52b",
+              "repro_torch.configs.internvl2_26b",
+              "repro_torch.configs.seamless_m4t_medium"):
         assert m in mods
 
 

@@ -1,7 +1,8 @@
 """The port's MLA and MoE models (``repro_torch.models.attention``'s MLA
 half, ``repro_torch.models.moe``, the prologue layers of
-``repro_torch.models.lm``) and the dense configurations the port
-registers, against ``repro.models`` on the same NumPy inputs.
+``repro_torch.models.lm``) and the dense configurations, against
+``repro.models`` on the same NumPy inputs; the registry against the
+reference's, all ten configurations.
 
 Tolerances are ``tests/test_torch_models.py``'s: float32 1e-5 (``F32``),
 1e-4 through the exponentials of attention (``EXP``), one bfloat16 step
@@ -100,21 +101,16 @@ class _activations:
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [DEEPSEEK, GRANITE, *DENSE, "qwen2.5-3b"])
+@pytest.mark.parametrize("arch", [DEEPSEEK, GRANITE, *DENSE, "qwen2.5-3b",
+                                  "xlstm-350m", "jamba-v0.1-52b",
+                                  "internvl2-26b", "seamless-m4t-medium"])
 def test_registered_configs_equal_the_reference(arch):
-    assert arch in ARCH_IDS
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    assert ARCH_IDS == JARCH_IDS
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jget_config(arch))
     assert dataclasses.asdict(smoke_variant(get_config(arch))) == \
         dataclasses.asdict(jsmoke(jget_config(arch)))
-
-
-@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-v0.1-52b",
-                                  "internvl2-26b", "seamless-m4t-medium"])
-def test_unported_configs_name_a5(arch):
-    jget_config(arch)
-    with pytest.raises(KeyError, match="A5"):
-        get_config(arch)
 
 
 # ---------------------------------------------------------------------------

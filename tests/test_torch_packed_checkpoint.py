@@ -1,7 +1,7 @@
 """The port's packed checkpoint artifact (``repro_torch.checkpoint
 .packed``) on the CPU, mirroring ``tests/test_packed_checkpoint.py``
-(the qwen2.5-3b half: the enc-dec family waits for ROADMAP A5) and held
-against the JAX package:
+(the qwen2.5-3b half; the seamless-m4t-medium half is in
+``tests/test_torch_encdec.py``) and held against the JAX package:
 
 * the port's ``build_manifest`` on the golden's params reproduces
   ``tests/golden/packed_checkpoint.npz`` byte for byte — the manifest

@@ -217,18 +217,23 @@ def test_unported_paths_raise_with_the_roadmap_item(setup):
         else:
             assert isinstance(krot, PagedKV)
             assert krot.data.shape[-1] == mla.rope_head_dim
-    # the SSM mixers and the encoder-decoder family wait for A5
+    # the SSM mixers build params and dense caches (their states); a
+    # paged cache raises, as in the reference
     for kind in ("mamba", "mlstm"):
         ssm = dataclasses.replace(smoke_variant(get_config(ARCH)),
                                   block_pattern=(kind,))
-        with pytest.raises(NotImplementedError, match="A5"):
-            get_model(ssm).init_params(torch.Generator().manual_seed(0), ssm)
-        with pytest.raises(NotImplementedError, match="A5"):
-            get_model(ssm).init_cache(ssm, 1, 4, device="cpu")
-    encdec = dataclasses.replace(smoke_variant(get_config(ARCH)),
-                                 family="encdec")
-    with pytest.raises(NotImplementedError, match="A5"):
-        get_model(encdec)
+        sp = get_model(ssm).init_params(torch.Generator().manual_seed(0),
+                                        ssm)
+        assert {"mamba": "in_proj", "mlstm": "up_proj"}[kind] in \
+            sp["stack"]["b0"]["mixer"]
+        state = get_model(ssm).init_cache(ssm, 1, 4, device="cpu")
+        assert all(t.shape[:2] == (ssm.n_periods, 1)
+                   for t in state["stack"]["b0"])
+        with pytest.raises(NotImplementedError,
+                           match="paged KV cache covers attention mixers"):
+            get_model(ssm).init_cache(ssm, 1, 4, device="cpu",
+                                      paged=PagedSpec(page_size=2, max_len=4,
+                                                      n_slots=1))
     cb = ContinuousBatcher(tparams, tcfg, n_slots=1, max_len=8, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         cb.configure_resilience(supervisor=object())

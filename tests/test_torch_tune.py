@@ -724,15 +724,20 @@ def test_transformer_quality_smoke():
                                                  rel=0.2)
 
 
-@pytest.mark.parametrize("change", [dict(family="encdec"),
-                                    dict(frontend="vision", frontend_seq=4)])
-def test_transformer_quality_prefix_models_wait_for_a5(monkeypatch, change):
-    from repro_torch import configs
-    cfg = dataclasses.replace(get_config("qwen2.5-3b"), name="prefixed",
-                              **change)
-    monkeypatch.setitem(configs.REGISTRY, "prefixed", cfg)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tune.transformer_quality("prefixed", device="cpu")
+@pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-medium"])
+def test_transformer_quality_prefix_models(arch):
+    """The prefix-fed models (a vision frontend stub, an encoder-decoder)
+    against the reference's ``transformer_quality``: a stub prefix drawn
+    beside the tokens, the same keys and packed leaves."""
+    q = tune.transformer_quality(arch, batch=1, prompt_len=4, device="cpu")
+    j = jtune.transformer_quality(arch, batch=1, prompt_len=4)
+    assert set(q) == set(j)
+    assert q["n_packed"] == j["n_packed"] > 0
+    assert q["bits_per_weight"] == pytest.approx(j["bits_per_weight"],
+                                                 rel=0.2)
+    assert q["hbm_mb"] == pytest.approx(j["hbm_mb"], rel=0.2)
+    assert 0.0 <= q["argmax_agreement"] <= 1.0
+    assert np.isfinite(q["mean_abs_logit_err"])
 
 
 # ---------------------------------------------------------------------------
