@@ -114,6 +114,26 @@ refuse an SSM mixer); xlstm-350m whole (24 layers; the batcher too;
 the if_proj 2048 -> 8 row); seamless-m4t-medium whole (12 + 12 layers,
 stub frames (4, 1024, 1024)); internvl2-26b at its published widths,
 depth cut 48 -> 4, behind a stub vision prefix (4, 1024, 6144).
+
+Then the sharded CNN lane (``sharded_phase``): the VGG16 model of the
+first path on the ``sharded`` backend over meshes of D = 1 (the card), 2
+and 4 (cuda:0 repeated: a mesh may name one device more than once), each
+request held to ``tiled`` on the same model, bit for bit where that
+holds and else within 1e-4 of the output's range, the distance printed;
+then a ``CodrBatchServer`` under a ``ServingSupervisor`` over the D = 4
+lane with two device losses at ``sharded.dispatch`` and one dispatch
+error, every request served once and equal to a clean supervised run's,
+the ladder walked down to ``tiled``.  Last, training (``train_phase``):
+``python -m repro_torch.launch.train --steps 40`` as a child process
+(the smoke variant, as the reference's CLI always trains; it must print
+``improved``); qwen2.5-3b at its published widths with the depth cut to
+4 (bf16 params, AdamW's float32 moments, batch 8 x seq 128, lr 3e-3):
+40 steps uninterrupted, then the same 40 with checkpoints every 10, a
+failure at step 25 and a resume from step 20 whose losses are held to
+the uninterrupted run's; then the full depth, 36 layers, 10 timed
+steps.  Neither phase launches a
+hand-written kernel (the reference's sharded lane and training reach no
+Pallas kernel): their launch counts are held to 0.
 A host-only line gives the paper's cost-model ratios (a model estimate,
 not a measurement).
 
@@ -3057,6 +3077,403 @@ def internvl_phase(args) -> dict:
                        per_step=7 * INTERNVL_LAYERS, gen_len=8)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded CNN lane and its serving supervisor (VGG16)
+# ---------------------------------------------------------------------------
+
+SHARD_DS = (1, 2, 4)            # mesh sizes; D > 1 repeats cuda:0
+# sharded vs tiled where the two are not bit for bit: tiled's own bound
+# against its reference (cnn_path: tiled vs quantized_reference), a
+# share of the output's largest magnitude
+SHARD_REL_TOL = 1e-4
+
+
+def _zero_kernel_counts() -> list:
+    """Every kernel's launch counters set to 0; returns the ops modules."""
+    from repro_torch.kernels.codr_matmul import ops as mm_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.smm_conv import ops as smm_ops
+    for ops in (smm_ops, mm_ops, fa_ops):
+        ops.launches = 0
+        ops.launches_by_impl.update(dict.fromkeys(ops.launches_by_impl, 0))
+    return [smm_ops, mm_ops, fa_ops]
+
+
+def _no_kernel_launched(label: str, mods) -> None:
+    """The lanes of the new phases run no hand-written kernel (the
+    reference's sharded lane and training path reach no Pallas kernel)."""
+    counts = {m.__name__.split(".")[-2]: m.launches for m in mods}
+    say(f"{label}: kernel launches {counts} (the code gives none)")
+    if any(counts.values()):
+        fail(f"{label}: kernels launched {counts}, expected none")
+
+
+def sharded_phase(args, compiled) -> dict:
+    """The VGG16 model of the first path on the ``sharded`` lane (each
+    layer's decoded tile stack split over the output-tile axis, one
+    ``F.conv2d`` a shard, gathered to the first device): batch-4
+    requests over meshes of D = 1 (the default mesh: the card), 2 and 4
+    (cuda:0 repeated), each D gated against ``tiled`` on the same
+    compiled model; then a ``CodrBatchServer`` under a
+    ``ServingSupervisor`` over the D = 4 lane with two device losses at
+    ``sharded.dispatch`` and one dispatch error, served requests equal
+    to a clean supervised run's, and the rest of the ladder walked down
+    to ``tiled``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import backends
+    from repro_torch.core.backends import ShardedBackend
+    from repro_torch.runtime import resilience as res
+    from repro_torch.sharding import rules
+
+    mods = _zero_kernel_counts()
+    img_rng = np.random.default_rng(args.seed + 9)
+    batch, n_requests = 4, 3
+    images = [img_rng.integers(0, 256, size=(batch, 226, 226, 3)).astype(
+        np.float32) for _ in range(n_requests)]
+    lanes = {"tiled": backends.get_backend("tiled"),
+             1: backends.get_backend("sharded")}
+    for d in SHARD_DS[1:]:
+        lanes[d] = ShardedBackend(rules.tile_mesh(["cuda:0"] * d),
+                                  name=f"sharded_d{d}")
+    out = {"launches": 0, "launches_by_impl": {}, "per_d": {}}
+    conv_names = re.compile(r"conv|cudnn|implicit|gemm|xmma|winograd|fft")
+    bitwise, tiled, scale = True, None, None
+    for d, lane in lanes.items():
+        mesh = (lane.mesh_for(compiled.device) if d != "tiled"
+                else (compiled.device,))
+        if d != "tiled" and len(mesh) != d:
+            fail(f"sharded D={d}: mesh {mesh}")
+        ms, ys = [], []
+        for x in images:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = compiled.run(x, backend=lane)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if tuple(y.shape) != (batch, 212, 212, 256) or \
+                    not bool(torch.isfinite(y).all()):
+                fail(f"sharded D={d}: output {tuple(y.shape)} not finite")
+            ys.append(y)
+        if d == "tiled":
+            tiled = ys
+            scale = max(float(y.abs().max()) for y in tiled)
+        err = max(float((y - t).abs().max()) for y, t in zip(ys, tiled))
+        del ys
+        # D = 1 is tiled's call: its profile would repeat tiled's
+        prof = None if d == 1 else _profile(
+            lambda: compiled.run(images[1], backend=lane), "conv",
+            conv_names)
+        steady = ms[1:]
+        row = {"mesh": [str(m) for m in mesh], "first_ms": ms[0],
+               "steady_ms": steady,
+               "images_s": batch * len(steady) / (sum(steady) / 1e3),
+               "max_abs_vs_tiled": err, "bit_for_bit": err == 0.0,
+               "profile": prof}
+        out["per_d"][d] = row
+        label = "tiled" if d == "tiled" else f"sharded D={d}"
+        say(f"{label} over {row['mesh']}: batch {batch} requests, first "
+            f"{ms[0]:.3f} ms{' (places the shards)' if d != 'tiled' else ''}"
+            f", steady {[round(t, 3) for t in steady]} ms, "
+            f"{row['images_s']:.3f} images/s; vs tiled max-abs {err!r} "
+            f"({'bit for bit' if err == 0.0 else f'{err / scale:.3e} of the output range'}) [{SMI}]")
+        if prof is not None:
+            _say_profile(f"{label} profile, one steady request", prof,
+                         "conv")
+        if d == "tiled":
+            continue
+        bitwise &= err == 0.0
+        if err > SHARD_REL_TOL * scale:
+            fail(f"sharded D={d} vs tiled max-abs {err} > "
+                 f"{SHARD_REL_TOL} x {scale}")
+    out["bit_for_bit"] = bitwise
+
+    # -- the supervisor over the D = 4 lane --------------------------------
+    reqs = [img_rng.integers(0, 256, size=(226, 226, 3)).astype(np.float32)
+            for _ in range(12)]
+
+    def supervised(plan):
+        lane = ShardedBackend(rules.tile_mesh(["cuda:0"] * 4))
+        inj = None if plan is None else res.FaultInjector(plan)
+        lane.set_fault_injector(inj)
+        sup = res.ServingSupervisor(backend=lane, fallback="tiled")
+        srv = compiled.serve(max_batch=4)
+        srv.configure_resilience(
+            injector=inj, supervisor=sup,
+            retry_policy=res.RetryPolicy(max_retries=3, backoff_s=1e-3))
+        t0 = time.perf_counter()
+        rows = srv.serve(reqs)
+        return sup, srv, rows, (time.perf_counter() - t0) * 1e3
+
+    _, _, clean, clean_ms = supervised(None)
+    plan = res.FaultPlan(
+        [res.Fault(res.SITE_SHARDED_DISPATCH, 0, "device_loss"),
+         res.Fault(res.SITE_SHARDED_DISPATCH, 2, "device_loss"),
+         res.Fault(res.SITE_SERVER_DISPATCH, 1, "error")])
+    sup, srv, rows, chaos_ms = supervised(plan)
+
+    def distance(a, b) -> float:
+        if any(r is None for r in a):
+            fail("sharded supervisor: a request got no output row")
+        return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+    err = distance(rows, clean)
+    walk = []
+    while sup.backend_name != "tiled":          # the rest of the ladder
+        lane = sup.degrade("walk the ladder")
+        walk.append(distance(srv.serve(reqs[:4]), clean[:4]))
+        say(f"sharded supervisor: rung {lane}, 4 requests vs the clean "
+            f"run max-abs {walk[-1]!r}")
+    if sup.degrade("past the bottom") is not None:
+        fail("sharded supervisor: the ladder did not end at tiled")
+    history = [[h["from"], h["to"], h["surviving_devices"], h["reason"]]
+               for h in sup.history]
+    say(f"sharded supervisor history [from, to, surviving, reason]: "
+        f"{history}")
+    say(f"sharded supervisor: 12 requests, clean D=4 run {clean_ms:.3f} ms, "
+        f"under the plan ({plan.describe().replace(chr(10), ';')}) "
+        f"{chaos_ms:.3f} ms; served {srv.requests_served}, quarantined "
+        f"{srv.requests_quarantined}, fired {len(srv._injector.fired)}; vs "
+        f"clean max-abs {err!r} [{SMI}]")
+    names = [h[1] for h in history]
+    if names != ["sharded@2", "sharded@2", "sharded@1", "tiled"]:
+        fail(f"sharded supervisor: rungs {names}")
+    if srv.requests_served != len(reqs) + 4 * len(walk) or \
+            srv.requests_quarantined or len(rows) != len(reqs):
+        fail(f"sharded supervisor: served {srv.requests_served}, "
+             f"quarantined {srv.requests_quarantined}")
+    lim = 0.0 if bitwise else SHARD_REL_TOL * scale
+    if max([err, *walk]) > lim:
+        fail(f"sharded supervisor: outputs {max([err, *walk])} from the "
+             f"clean run's (limit {lim})")
+    out.update(history=history, chaos_ms=chaos_ms, clean_ms=clean_ms,
+               max_abs_vs_clean=max([err, *walk]))
+    _no_kernel_launched("sharded phase", mods)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: training — the CLI, and qwen2.5-3b at its published widths
+# ---------------------------------------------------------------------------
+
+TRAIN_DEPTH = 4                 # depth cut of the crash-and-resume run
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL = 40, 10, 25
+TRAIN_FULL_STEPS = 12           # the first two untimed
+# the resumed losses vs the uninterrupted run's: the embedding's backward
+# accumulates with atomics on the card, so the bits of a step may differ;
+# the repo's bf16 bound (2e-2 of the magnitude)
+TRAIN_RESUME_REL = 2e-2
+
+
+def _train_loop(cfg, ckpt_dir: str, seed: int, *, total: int, every: int,
+                fail_at=None):
+    """A ``TrainLoop`` as the CLI makes it (batch 8 × seq 128, lr 3e-3,
+    no master copy) over ``cfg`` with params drawn on the card from
+    ``seed`` and cast to bf16."""
+    import torch
+
+    from repro_torch.core.tree import map_leaves
+    from repro_torch.data import DataConfig, host_batch_iterator
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainLoop, TrainLoopConfig
+    api = get_model(cfg)
+    params = api.init_params(torch.Generator("cuda").manual_seed(seed), cfg)
+    params = map_leaves(lambda p: p.to(torch.bfloat16), params)
+    torch.cuda.empty_cache()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                      global_batch=8)
+    return TrainLoop(
+        train_loss_fn=lambda p, b: api.train_loss(p, b, cfg),
+        params=params, batch_iter=host_batch_iterator(dcfg),
+        opt_cfg=AdamWConfig(lr=3e-3, use_master=False),
+        loop_cfg=TrainLoopConfig(total_steps=total, checkpoint_every=every,
+                                 ckpt_dir=ckpt_dir, peak_lr=3e-3,
+                                 fail_at_step=fail_at))
+
+
+def _n_params(tree) -> int:
+    from repro_torch.core.tree import leaves
+    return sum(p.numel() for p in leaves(tree))
+
+
+def _step_ms(hist, skip: int = 1) -> tuple:
+    import numpy as np
+    t = [h["step_time_s"] * 1e3 for h in hist[skip:]]
+    return float(np.median(t)), float(np.mean(t))
+
+
+def train_phase(args) -> dict:
+    """Training through the entry points a user calls: the CLI
+    (``python -m repro_torch.launch.train --steps 40``, the smoke variant
+    as the reference's CLI always trains) as a child process; qwen2.5-3b
+    at its published widths with the depth cut to 4: 40 steps
+    uninterrupted, then 40 with checkpoints every 10, a simulated failure
+    at step 25 and a resume held to the uninterrupted run; then the full
+    depth (36), 10 timed steps with no checkpoint."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    mods = _zero_kernel_counts()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(root, "build", f"train_phase_{os.getpid()}")
+    out = {"launches": 0, "launches_by_impl": {}}
+    say(f"train: device memory allocated at the start "
+        f"{torch.cuda.memory_allocated()} bytes")
+    try:
+        # -- 1. the CLI as users run it ------------------------------------
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+             "40", "--ckpt-dir", os.path.join(tmp, "cli")], cwd=root,
+            env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        for line in child.stdout.strip().splitlines():
+            say(f"train CLI: {line}")
+        if child.returncode or "(improved)" not in child.stdout:
+            fail(f"train CLI rc {child.returncode}: "
+                 f"{child.stdout[-800:]} {child.stderr[-1500:]}")
+        say(f"train CLI: --steps 40 in {cli_s:.1f} s (the process, its "
+            f"start included) [{SMI}]")
+        out["cli_s"] = cli_s
+
+        # -- 2. published widths, depth cut: crash and resume --------------
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                                  n_layers=TRAIN_DEPTH)
+        say(f"train: qwen2.5-3b at its published widths (d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}), depth 36 -> {TRAIN_DEPTH}; bf16 params, "
+            f"AdamW without a master copy, batch 8 x seq 128, lr 3e-3, "
+            f"remat {cfg.remat}")
+        torch.cuda.reset_peak_memory_stats()
+        # the uninterrupted run writes no checkpoint (a save copies the
+        # state and changes none of it); the crash-and-resume run does
+        loop = _train_loop(cfg, os.path.join(tmp, "a"), args.seed,
+                           total=TRAIN_STEPS, every=10 ** 9)
+        n = _n_params(loop.params)
+        full = loop.run()
+        losses = [h["loss"] for h in full]
+        med, mean = _step_ms(full)
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        peak = torch.cuda.max_memory_allocated()
+        say(f"train depth {TRAIN_DEPTH}: {n} params, {len(full)} steps, loss "
+            f"{first:.4f} -> {last:.4f} (first / last 10), per step "
+            f"{[round(x, 4) for x in losses]}; step median {med:.3f} ms, "
+            f"mean {mean:.3f} ms (steps 1..), {8 * 128 / med * 1e3:.1f} "
+            f"tokens/s; peak device memory {peak} bytes [{SMI}]")
+        if not np.isfinite(losses).all() or not last < first:
+            fail(f"train depth {TRAIN_DEPTH}: the loss did not fall "
+                 f"({first} -> {last})")
+        state = {"params": loop.params, "opt": loop.opt_state}
+        t0 = time.perf_counter()
+        loop.ckpt.save(TRAIN_STEPS, state, async_=False)
+        save_s = time.perf_counter() - t0
+        step_dir = os.path.join(tmp, "a", f"step_{TRAIN_STEPS}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        batch = next(iter(loop.batch_iter))[1]
+        prof = _profile(lambda: loop.step_fn(loop.params, loop.opt_state,
+                                             batch),
+                        "gemm", re.compile(r"gemm|xmma|nvjet|cutlass"))
+        _say_profile(f"train depth {TRAIN_DEPTH} profile, one step", prof,
+                     "gemm")
+        say(f"train depth {TRAIN_DEPTH}: checkpoint {ckpt_bytes} bytes "
+            f"(params + m + v + step), one synchronous save {save_s:.2f} s "
+            f"({ckpt_bytes / save_s / 1e9:.2f} GB/s, device to host and "
+            f"the files) [{SMI}]")
+        del loop, state, batch
+        torch.cuda.empty_cache()
+
+        crash = _train_loop(cfg, os.path.join(tmp, "b"), args.seed,
+                            total=TRAIN_STEPS, every=TRAIN_EVERY,
+                            fail_at=TRAIN_FAIL)
+        try:
+            crash.run()
+        except RuntimeError as e:
+            if "simulated host failure" not in str(e):
+                raise
+            say(f"train: {e}; checkpoints {crash.ckpt.steps()}")
+        else:
+            fail("train: the simulated failure did not fire")
+        del crash
+        torch.cuda.empty_cache()
+        resumed = _train_loop(cfg, os.path.join(tmp, "b"), args.seed + 1,
+                              total=TRAIN_STEPS, every=TRAIN_EVERY)
+        t0 = time.perf_counter()
+        start = resumed.try_restore()
+        restore_s = time.perf_counter() - t0
+        hist = resumed.run()
+        steps = [h["step"] for h in hist]
+        diff = [abs(h["loss"] - f["loss"]) for h, f in
+                zip(hist, full[start:])]
+        say(f"train resume: restored step {start - 1} in {restore_s:.2f} s, "
+            f"ran steps {steps[0]}..{steps[-1]}; resumed losses vs the "
+            f"uninterrupted run: largest difference {max(diff)!r} "
+            f"({'bit for bit' if max(diff) == 0 else 'not bit for bit'}), "
+            f"per step {[round(d, 6) for d in diff]}")
+        if start != TRAIN_EVERY * (TRAIN_FAIL // TRAIN_EVERY) + 1 or \
+                steps != list(range(start, TRAIN_STEPS)):
+            fail(f"train resume: start {start}, steps {steps}")
+        if max(diff) > TRAIN_RESUME_REL * max(abs(full[-1]["loss"]), 1.0):
+            fail(f"train resume: losses {max(diff)} from the uninterrupted "
+                 f"run's")
+        del resumed
+        torch.cuda.empty_cache()
+        out["cut"] = {"depth": TRAIN_DEPTH, "params": n, "losses": losses,
+                      "step_ms": med, "step_ms_mean": mean,
+                      "tokens_s": 8 * 128 / med * 1e3, "peak_bytes": peak,
+                      "ckpt_bytes": ckpt_bytes, "save_s": save_s,
+                      "restore_s": restore_s, "profile": prof,
+                      "resume_start": start, "resume_max_diff": max(diff)}
+
+        # -- 3. full depth, 10 timed steps ---------------------------------
+        cfg = get_config("qwen2.5-3b")
+        torch.cuda.reset_peak_memory_stats()
+        loop = _train_loop(cfg, os.path.join(tmp, "c"), args.seed,
+                           total=TRAIN_FULL_STEPS, every=10 ** 9)
+        n = _n_params(loop.params)
+        hist = loop.run()
+        peak = torch.cuda.max_memory_allocated()
+        med, mean = _step_ms(hist, skip=2)
+        batch = next(iter(loop.batch_iter))[1]
+        prof = _profile(lambda: loop.step_fn(loop.params, loop.opt_state,
+                                             batch),
+                        "gemm", re.compile(r"gemm|xmma|nvjet|cutlass"))
+        _say_profile("train full depth profile, one step", prof, "gemm")
+        tokens = 8 * 128
+        n_stack = n - cfg.vocab_size * cfg.d_model     # tied embeddings
+        flops = 6 * n * tokens
+        remat = 2 * n_stack * tokens if cfg.remat else 0
+        share = flops / (med / 1e3) / BF16_FLOPS
+        say(f"train full depth {cfg.n_layers}: {n} params, "
+            f"{len(hist)} steps, loss {hist[0]['loss']:.4f} -> "
+            f"{hist[-1]['loss']:.4f}; step median {med:.3f} ms, mean "
+            f"{mean:.3f} ms (steps 2..{len(hist) - 1}), "
+            f"{tokens / med * 1e3:.1f} tokens/s; peak device memory {peak} "
+            f"bytes; model FLOPs 6 N T = {flops:.4e} a step (remat's extra "
+            f"forward 2 N_stack T = {remat:.4e} more), {share:.4f} of the "
+            f"dense bf16 peak {BF16_FLOPS:.3e} FLOP/s [{SMI}]")
+        if not np.isfinite([h["loss"] for h in hist]).all():
+            fail("train full depth: a loss is not finite")
+        out["full"] = {"depth": cfg.n_layers, "params": n, "step_ms": med,
+                       "step_ms_mean": mean, "tokens_s": tokens / med * 1e3,
+                       "peak_bytes": peak, "model_flops": flops,
+                       "remat_flops": remat, "bf16_peak_share": share,
+                       "profile": prof,
+                       "losses": [h["loss"] for h in hist]}
+        del loop
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _no_kernel_launched("train phase", mods)
+    return out
+
+
 def cost_model_line(compiled) -> None:
     """The paper's Fig. 7/8 comparison over the VGG16 layers of the first
     path, from their measured encoded bits: SRAM accesses and energy of
@@ -3206,6 +3623,14 @@ def main() -> int:
         t0 = time.perf_counter()
         kernels[1][name] = phase(args)
         say(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _add_phase(kernels[0], "sharded", sharded_phase(args, cnn_model))
+    say(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _add_phase(kernels[1], "train", train_phase(args))
+    say(f"train phase: {time.perf_counter() - t0:.1f} s")
     cost_model_line(cnn_model)
 
     say(json.dumps({"kernels": kernels}))

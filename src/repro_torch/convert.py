@@ -7,6 +7,10 @@ the port.
 * :func:`params_from_reference` turns a ``repro.models`` params tree,
   given as NumPy arrays, into the port's tree of tensors (same dict
   layout, same paths).
+* :func:`opt_state_from_reference` does the same for a
+  ``repro.optim.adamw_init`` / ``adamw_update`` state (``m``, ``v``,
+  the optional ``master``, the int32 ``step``), so a reference
+  ``TrainLoop``'s params and optimizer state seed the port's.
 * :func:`compiled_params_from_reference` copies a ``repro``
   ``CompiledParams``' packed leaves (words, table, scale, bits, shape,
   out-features) into a port :class:`~repro_torch.core.api.CompiledParams`
@@ -29,7 +33,8 @@ from repro_torch.core.serving import TensorReport
 from repro_torch.core.tree import map_leaves
 
 __all__ = ["layer_code_from_reference", "compiled_from_reference",
-           "params_from_reference", "compiled_params_from_reference"]
+           "params_from_reference", "opt_state_from_reference",
+           "compiled_params_from_reference"]
 
 
 def _stream(s) -> rle.Stream:
@@ -110,6 +115,19 @@ def params_from_reference(tree, device=None):
     ``device`` (the card unless the caller names another)."""
     dev = engine.resolve_device(device)
     return map_leaves(lambda a: _tensor(a, dev), tree)
+
+
+def opt_state_from_reference(state, device=None) -> dict:
+    """The port's AdamW state for a reference one whose leaves are NumPy
+    arrays: ``m`` / ``v`` (and ``master``) trees of float32 tensors, and
+    ``step`` as an int32 0-d tensor, on ``device`` (the card unless the
+    caller names another)."""
+    keys = set(state)
+    if not {"m", "v", "step"} <= keys <= {"m", "v", "step", "master"}:
+        raise ValueError(f"not an AdamW state: keys {sorted(keys)}")
+    out = params_from_reference(state, device)
+    out["step"] = out["step"].to(torch.int32).reshape(())
+    return out
 
 
 def compiled_params_from_reference(cp, device=None) -> api.CompiledParams:

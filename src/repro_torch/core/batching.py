@@ -68,11 +68,12 @@ An SSM mixer's state is different: a step reads the whole state and
 writes it back advanced (``h ← decay·h + drive``), so a re-run over a
 state that its failed attempt already wrote would advance it twice.  The
 SSM models run on the dense pool only (a paged pool raises, as in the
-reference), and with a ``RetryPolicy`` configured the pooled step saves
-the pool's SSM states (``models.lm.recurrent_state``) before its first
-attempt and puts them back before every attempt, so each attempt starts
-from the state a clean step starts from; ``CapturedDecode`` does the
-same around its eager warm-up.  ``tests/test_torch_ssm.py`` fails a step
+reference), and with a ``RetryPolicy`` or a ``ServingSupervisor``
+configured the pooled step saves the pool's SSM states
+(``models.lm.recurrent_state``) before its first attempt and puts them
+back before every attempt, so each attempt starts from the state a
+clean step starts from; ``CapturedDecode`` does the same around its
+eager warm-up.  ``tests/test_torch_ssm.py`` fails a step
 after its first layer on the jamba and xlstm pools and holds the retried
 run to the clean one.
 
@@ -606,7 +607,8 @@ class ContinuousBatcher(AsyncWorkerLoop):
         # a re-run recomputes the step over the KV rows the failed
         # attempt wrote (the same bits), from the SSM states it started
         # from (module docstring)
-        state = self._recurrent if self._retry_policy is not None else []
+        state = (self._recurrent if self._retry_policy is not None
+                 or self._supervisor is not None else [])
         saved = [t.clone() for t in state]
 
         def _attempt():
@@ -616,6 +618,7 @@ class ContinuousBatcher(AsyncWorkerLoop):
             logits, _ = self._step_fn(self._params, self._pool, toks, poss)
             return _host_rows(logits)
 
+        t0 = time.monotonic()
         try:
             if kv_table is not None:
                 # push the authoritative host page table into the pool
@@ -632,6 +635,9 @@ class ContinuousBatcher(AsyncWorkerLoop):
                 for _, s in active:
                     s.handle._fail(e)
             return
+        sup = self._supervisor
+        if sup is not None:
+            sup.record_latency(time.monotonic() - t0)
         with self._cv:
             self.steps_run += 1
         for i, s in active:

@@ -38,8 +38,7 @@ from repro_torch.core.codr_linear import choose_bits, quantize_restrict
 from repro_torch.core.tree import map_with_path
 from repro_torch.runtime.resilience import (DeadlineExceeded,
                                             QuarantinedError, RejectedError,
-                                            WorkerCrashed, refuse_supervisor,
-                                            retry_call)
+                                            WorkerCrashed, retry_call)
 
 __all__ = ["MIN_COMPRESS_SIZE", "TensorReport", "compress_tensor",
            "account_tensor", "codr_compress_params", "codr_report",
@@ -254,8 +253,8 @@ class AsyncWorkerLoop:
     :class:`~repro_torch.runtime.resilience.WorkerCrashed`, so
     ``result()`` never hangs on a dead loop; the next submit starts a
     fresh worker.  ``configure_resilience`` also installs the fault
-    injector (:meth:`_fire` is the site hook) and the retry policy the
-    subclasses dispatch under.
+    injector (:meth:`_fire` is the site hook), the retry policy and the
+    serving supervisor the subclasses dispatch under.
     """
 
     _thread_name = "async-worker"
@@ -268,6 +267,7 @@ class AsyncWorkerLoop:
         self._injector = None           # runtime.resilience.FaultInjector
         self._retry_policy = None       # runtime.resilience.RetryPolicy
         self._restart_policy = None     # runtime.resilience.RestartPolicy
+        self._supervisor = None         # runtime.resilience.ServingSupervisor
         self.worker_crashes = 0                        # guarded-by: _cv
         self.worker_restarts = 0                       # guarded-by: _cv
 
@@ -289,15 +289,15 @@ class AsyncWorkerLoop:
         """Install resilience hooks (all optional, from
         :mod:`repro_torch.runtime.resilience`): a ``FaultInjector``
         firing at this loop's sites, a ``RetryPolicy`` for transient
-        dispatch failures (exhaustion ⇒ quarantine) and a
-        ``RestartPolicy`` for worker crashes.  A ``supervisor`` raises
-        ``NotImplementedError`` naming ROADMAP A10 (it degrades a
-        sharded lane the port does not have).  Returns ``self``."""
-        refuse_supervisor(supervisor)
+        dispatch failures (exhaustion ⇒ quarantine), a ``RestartPolicy``
+        for worker crashes and a ``ServingSupervisor`` for latency watch
+        and mesh degradation.  With none installed every code path is
+        the unconfigured one.  Returns ``self``."""
         with self._cv:
             self._injector = injector
             self._retry_policy = retry_policy
             self._restart_policy = restart_policy
+            self._supervisor = supervisor
         return self
 
     def _fire(self, site: str) -> None:
@@ -308,9 +308,10 @@ class AsyncWorkerLoop:
             inj.fire(site)
 
     def _guarded(self, fn):
-        """Run one dispatch under the retry policy; exactly ``fn()``
-        when none is configured."""
-        return retry_call(fn, policy=self._retry_policy)
+        """Run one dispatch under the retry / supervisor ladder; exactly
+        ``fn()`` when neither is configured."""
+        return retry_call(fn, policy=self._retry_policy,
+                          supervisor=self._supervisor)
 
     def _run_worker(self) -> None:
         """Thread target: supervise :meth:`_loop`.  A normal return ends
@@ -636,18 +637,33 @@ class CodrBatchServer(AsyncWorkerLoop):
             self._count(n_real, bucket)
         return outs
 
+    def _model_run(self, batch):
+        """One model dispatch, routed through the supervisor's current
+        lane when one is installed (a degradation changes the backend)."""
+        sup = self._supervisor
+        if sup is not None:
+            return self.model.run(batch, backend=sup.backend)
+        return self.model.run(batch)
+
     def _guarded_dispatch(self, batch: np.ndarray) -> np.ndarray:
-        """Dispatch one host chunk under the retry policy: fire the
-        injection site, run the model, block to host.  Transient
-        failures re-execute with backoff (a dispatch writes nothing but
-        its own output, so a re-run is a first run); unconfigured this
-        is exactly one attempt."""
+        """Dispatch one host chunk under the resilience ladder: fire the
+        injection site, run on the current lane, block to host.
+        Transient failures re-execute with backoff (a dispatch writes
+        nothing but its own output, so a re-run is a first run); with a
+        supervisor, a device loss degrades the lane and retries there,
+        and the chunk's wall time feeds its latency watch.  Unconfigured
+        this is exactly one attempt."""
 
         def _attempt():
             self._fire("server.dispatch")
-            return _to_host(self.model.run(batch))
+            return _to_host(self._model_run(batch))
 
-        return self._guarded(_attempt)
+        sup = self._supervisor
+        t0 = time.monotonic()
+        y = self._guarded(_attempt)
+        if sup is not None:
+            sup.record_latency(time.monotonic() - t0)
+        return y
 
     def _note_quarantine(self, exc: BaseException, n_real: int) -> None:
         """Record a consumed-not-requeued chunk.  Only exhaustion of a
@@ -824,7 +840,8 @@ class CodrBatchServer(AsyncWorkerLoop):
             return
         futs = [r.future for r in live]
         chunks = list(self._chunks([r.sample for r in live]))
-        if self._retry_policy is not None or self._injector is not None:
+        if (self._retry_policy is not None or self._supervisor is not None
+                or self._injector is not None):
             self._dispatch_chunks_resilient(chunks, futs)
             return
         staged: list = [None] * len(chunks)
@@ -855,10 +872,11 @@ class CodrBatchServer(AsyncWorkerLoop):
                     futs[p].set_result(y[j])
 
     def _dispatch_chunks_resilient(self, chunks, futs) -> None:
-        """Async dispatch under the retry policy: each chunk runs through
-        :meth:`_guarded_dispatch` (fire site → run → block), retries
-        transients, quarantines on budget exhaustion (that chunk's
-        futures get the ``QuarantinedError``; later chunks are served).
+        """Async dispatch under the resilience ladder: each chunk runs
+        through :meth:`_guarded_dispatch` (fire site → current lane →
+        block), retries transients, quarantines on budget exhaustion
+        (that chunk's futures get the ``QuarantinedError``; later chunks
+        are served) and feeds per-chunk latency to the supervisor.
         No staging overlap here — a retried chunk owns its dispatch end
         to end."""
         for chunk_pos, batch, n_real, bucket in chunks:

@@ -6,7 +6,8 @@ from __future__ import annotations
 
 from typing import Callable, Iterator
 
-__all__ = ["leaves_with_path", "map_with_path", "map_leaves"]
+__all__ = ["leaves_with_path", "map_with_path", "map_leaves", "leaves",
+           "unflatten_like"]
 
 
 def _children(tree):
@@ -52,3 +53,18 @@ def map_with_path(fn: Callable[[str, object], object], tree,
 def map_leaves(fn: Callable[[object], object], tree):
     """:func:`map_with_path` without the path."""
     return map_with_path(lambda _, leaf: fn(leaf), tree)
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in flatten order."""
+    return [leaf for _, leaf in leaves_with_path(tree)]
+
+
+def unflatten_like(tree, new_leaves) -> object:
+    """A tree of ``tree``'s structure holding ``new_leaves`` (in flatten
+    order) — ``jax.tree_util.tree_unflatten`` over ``tree``'s treedef."""
+    it = iter(new_leaves)
+    out = map_leaves(lambda _: next(it), tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out

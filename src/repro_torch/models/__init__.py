@@ -4,6 +4,7 @@ frontend-fed) and the encoder-decoder family:
 
     api = get_model(cfg)
     params = api.init_params(gen, cfg)            # gen: torch.Generator
+    loss = api.train_loss(params, batch, cfg)
     logits, cache = api.prefill(params, batch, cfg)
     cache = api.init_cache(cfg, batch, seq, device=...)
     logits, cache = api.decode_step(params, cache, token, pos, cfg)
@@ -40,8 +41,9 @@ def get_model(cfg) -> types.SimpleNamespace:
                                      dtype=dtype, device=device)
 
         return types.SimpleNamespace(
-            init_params=encdec.init_params, prefill=prefill,
-            decode_step=encdec.decode_step, init_cache=init_cache)
+            init_params=encdec.init_params, train_loss=encdec.train_loss,
+            prefill=prefill, decode_step=encdec.decode_step,
+            init_cache=init_cache)
 
     def prefill(params, batch, cfg):
         return lm.prefill(params, batch["tokens"], cfg,
@@ -53,5 +55,5 @@ def get_model(cfg) -> types.SimpleNamespace:
                              device=device)
 
     return types.SimpleNamespace(
-        init_params=lm.init_params, prefill=prefill,
-        decode_step=lm.decode_step, init_cache=init_cache)
+        init_params=lm.init_params, train_loss=lm.train_loss,
+        prefill=prefill, decode_step=lm.decode_step, init_cache=init_cache)

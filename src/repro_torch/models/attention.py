@@ -13,8 +13,8 @@ on an executing backend).
 Decode runs against a contiguous cache or a paged one
 (:class:`repro_torch.models.cache.PagedKV`, the continuous batcher's
 pool).  The sequence-parallel ``decode_attn="dist"`` lane of the
-reference needs a mesh and waits for ROADMAP A10; with one device the
-reference takes the standard lane, and so does the port.
+reference needs a mesh and waits for ROADMAP "A10, model half"; with one
+device the reference takes the standard lane, and so does the port.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ counterpart of ``repro.models.common``.
 Activations run in bfloat16 (:data:`DEFAULT_DTYPE`) over float32 master
 params, as in the reference.  ``repro.sharding.maybe_constrain`` /
 ``constrain_tokens`` are no-ops on one device and are left out here
-(ROADMAP A10 ports sharding).
+(ROADMAP "A10, model half" ports them).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from repro_torch.core.codr_linear import (PackedEmbedding, PackedLinear,
 __all__ = ["DEFAULT_DTYPE", "PARAM_DTYPE", "dense_init", "embed_init",
            "dense_weight", "linear", "embedding_lookup", "unembed",
            "rms_norm", "layer_norm", "norm_apply", "norm_init", "act_fn", "rope_freqs",
-           "apply_rope"]
+           "apply_rope", "softmax_xent"]
 
 DEFAULT_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32    # master params; cast to compute dtype at use
@@ -161,3 +161,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy; logits (.., V) in float32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -15,22 +15,25 @@ Cross-attention runs through the model's plain chunked
 reference's does; the reference models never call the attention kernel.
 The decoder cache is ``{"self": (k, v), "cross": (k, v)}``, each stacked
 over the decoder layers; a decode step writes its self-attention row in
-place and only reads the cross half.
+place and only reads the cross half.  ``mode="train"`` gives every
+position's logits, each decoder layer checkpointed when ``cfg.remat`` is
+set (the reference's ``jax.checkpoint`` on its scan body).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (DEFAULT_DTYPE, embed_init,
                                        embedding_lookup, linear, norm_apply,
-                                       norm_init, unembed)
-from repro_torch.models.lm import _layer
+                                       norm_init, softmax_xent, unembed)
+from repro_torch.models.lm import _layer, _layers
 
-__all__ = ["init_params", "encode", "decode_forward", "prefill",
-           "decode_step", "init_cache"]
+__all__ = ["init_params", "encode", "decode_forward", "train_loss",
+           "prefill", "decode_step", "init_cache"]
 
 
 def _init_enc_layer(gen: torch.Generator, cfg, lead: tuple) -> dict:
@@ -80,8 +83,7 @@ def encode(params, frames: torch.Tensor, cfg) -> torch.Tensor:
     """frames (B, S_enc, d) precomputed embeddings → encoder output."""
     x = frames.to(DEFAULT_DTYPE)
     positions = _positions(*x.shape[:2], x.device)
-    for li in range(cfg.n_encoder_layers):
-        lp = _layer(params["enc_stack"], li)
+    for lp in _layers(params["enc_stack"], cfg.n_encoder_layers):
         h = norm_apply(x, lp["norm1"], cfg.norm_type, f32=cfg.norm_f32)
         out, _ = attn.gqa_forward(lp["mixer"], h, cfg, positions,
                                   causal=False)
@@ -124,38 +126,62 @@ def _dec_block(lp, x, cfg, mode, cache, pos, positions, enc_out, enc_kv):
 
 
 def decode_forward(params, tokens: torch.Tensor, cfg, enc_out=None, *,
-                   mode: str, cache=None, pos=None):
+                   mode: str = "train", cache=None, pos=None):
     """tokens (B, S) int → (logits, cache).
 
+    mode='train'  : causal decoder over ``enc_out``, logits for every
+                    position, no cache (``None``).
     mode='prefill': causal decoder over ``enc_out``, logits for the LAST
                     position, the cache out (self KV and cross KV, each
                     stacked over the layers).
     mode='decode' : S == 1 against ``cache`` at ``pos``, the new self KV
                     row written into it in place; returns it.
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}: the port runs prefill "
-                                  f"and decode (training is ROADMAP A11)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     x = embedding_lookup(params["embed"], tokens, DEFAULT_DTYPE)
     positions = _positions(*x.shape[:2], x.device)
     self_kv, cross_kv = [], []
-    for li in range(cfg.n_periods):
-        lp = _layer(params["dec_stack"], li)
-        if mode == "prefill":
-            x, skv, ckv = _dec_block(lp, x, cfg, mode, None, pos, positions,
-                                     enc_out, None)
-            self_kv.append(skv)
-            cross_kv.append(ckv)
-        else:
-            x, _, _ = _dec_block(
-                lp, x, cfg, mode, tuple(t[li] for t in cache["self"]), pos,
-                positions, None, tuple(t[li] for t in cache["cross"]))
+
+    def train_layer(xc, enc, lp):
+        xc, _, _ = _dec_block(lp, xc, cfg, mode, None, pos, positions, enc,
+                              None)
+        return xc
+
+    if mode == "train":
+        for lp in _layers(params["dec_stack"], cfg.n_periods):
+            x = (checkpoint(train_layer, x, enc_out, lp, use_reentrant=False)
+                 if cfg.remat else train_layer(x, enc_out, lp))
+    else:
+        for li in range(cfg.n_periods):
+            lp = _layer(params["dec_stack"], li)
+            if mode == "prefill":
+                x, skv, ckv = _dec_block(lp, x, cfg, mode, None, pos,
+                                         positions, enc_out, None)
+                self_kv.append(skv)
+                cross_kv.append(ckv)
+            else:
+                x, _, _ = _dec_block(
+                    lp, x, cfg, mode, tuple(t[li] for t in cache["self"]),
+                    pos, positions, None,
+                    tuple(t[li] for t in cache["cross"]))
     x = norm_apply(x, params["final_norm"], cfg.norm_type, f32=cfg.norm_f32)
     if mode == "prefill":
         x = x[:, -1:]
         cache = {half: tuple(torch.stack(parts) for parts in zip(*kvs))
                  for half, kvs in (("self", self_kv), ("cross", cross_kv))}
     return unembed(x, params["out_embed"]), cache
+
+
+def train_loss(params, batch, cfg) -> torch.Tensor:
+    """Next-token cross entropy of the decoder over ``batch["tokens"]``,
+    encoding ``batch["prefix"]`` (the frames) first."""
+    enc_out = encode(params, batch["prefix"], cfg)
+    logits, _ = decode_forward(params, batch["tokens"], cfg, enc_out,
+                               mode="train")
+    mask = batch.get("mask")
+    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:],
+                        mask[:, 1:] if mask is not None else None)
 
 
 def prefill(params, frames, tokens, cfg):

@@ -23,23 +23,27 @@ dense MLPs and MoE layers (routed plus shared experts), prologue layers
 and a ``prefix`` of precomputed frontend embeddings.  An SSM mixer's
 cache is its recurrent state, stacked over the periods like a KV pair
 and, like it, rewritten in place by a decode step.  The training forward
-and loss wait for ROADMAP A11.
+(``mode="train"``: every position's logits, no cache) runs the stack's
+periods under ``torch.utils.checkpoint`` when ``cfg.remat`` is set,
+where the reference wraps its scan body in ``jax.checkpoint``;
+:func:`train_loss` is the reference's next-token cross entropy.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.core.tree import map_leaves
+from repro_torch.core.tree import leaves, map_leaves, unflatten_like
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.common import (DEFAULT_DTYPE, embed_init,
                                        embedding_lookup, norm_apply,
-                                       norm_init, unembed)
+                                       norm_init, softmax_xent, unembed)
 
-__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
-           "recurrent_state", "CapturedDecode"]
+__all__ = ["init_params", "init_cache", "forward", "train_loss", "prefill",
+           "decode_step", "recurrent_state", "CapturedDecode"]
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +177,18 @@ def _layer(tree, i: int):
     return map_leaves(lambda leaf: leaf[i], tree)
 
 
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked params tree, each tensor leaf
+    unbound once along its leading axis (a packed leaf sliced).  The
+    gradient of an unbind is one ``stack`` of the layers' gradients,
+    where slicing layer by layer (:func:`_layer`) gives each layer's
+    gradient as a zero tensor of the whole stack's size, added up ``n``
+    times."""
+    cols = [leaf.unbind(0) if isinstance(leaf, torch.Tensor)
+            else [leaf[i] for i in range(n)] for leaf in leaves(tree)]
+    return [unflatten_like(tree, [c[i] for c in cols]) for i in range(n)]
+
+
 def _block_apply(lp, x, spec, cfg, mode, cache, pos, positions):
     """One block: the mixer of ``spec`` (attention, GQA or MLA, or an SSM
     mixer) and its MLP or MoE, if the plan gives it one."""
@@ -209,10 +225,13 @@ def _block_apply(lp, x, spec, cfg, mode, cache, pos, positions):
     return x, new_cache
 
 
-def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
-            pos=None, prefix=None):
+def forward(params, tokens: torch.Tensor, cfg, *, mode: str = "train",
+            cache=None, pos=None, prefix=None):
     """tokens (B, S) int → (logits, new_cache).
 
+    mode='train'  : causal forward, logits for every position, no cache
+                    (``None``); differentiable, each period checkpointed
+                    when ``cfg.remat`` is set.
     mode='prefill': causal forward, logits for the LAST position, cache
                     out (each pair stacked over the layers; the prologue
                     layers' pairs in a list).
@@ -220,9 +239,8 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
                     new KV rows and SSM states into it in place; returns
                     it.
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}: the port runs prefill "
-                                  f"and decode (training is ROADMAP A11)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     plan = cfg.layer_plan()
     x = embedding_lookup(params["embed"], tokens, DEFAULT_DTYPE)
     if prefix is not None:
@@ -237,6 +255,20 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
         x, nc = _block_apply(lp, x, ("attn", "dense"), cfg, mode, c, pos,
                              positions)
         new_prologue.append(nc)
+
+    if mode == "train":
+        def period_fn(xc, period):
+            for i, spec in enumerate(plan):
+                xc, _ = _block_apply(period[f"b{i}"], xc, spec, cfg, mode,
+                                     None, pos, positions)
+            return xc
+
+        for period in _layers(params["stack"], cfg.n_periods):
+            x = (checkpoint(period_fn, x, period, use_reentrant=False)
+                 if cfg.remat else period_fn(x, period))
+        x = norm_apply(x, params["final_norm"], cfg.norm_type,
+                       f32=cfg.norm_f32)
+        return unembed(x, params.get("out_embed", params["embed"])), None
 
     caches: dict[str, list] = {f"b{i}": [] for i in range(len(plan))}
     for li in range(cfg.n_periods):
@@ -268,6 +300,19 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str, cache=None,
 # ---------------------------------------------------------------------------
 # step functions
 # ---------------------------------------------------------------------------
+
+def train_loss(params, batch, cfg) -> torch.Tensor:
+    """Next-token cross entropy over ``batch["tokens"]`` (B, S) int, with
+    the optional ``"prefix"`` (its positions cut off the logits) and
+    ``"mask"``."""
+    logits, _ = forward(params, batch["tokens"], cfg, mode="train",
+                        prefix=batch.get("prefix"))
+    if cfg.frontend_seq and "prefix" in batch:
+        logits = logits[:, cfg.frontend_seq:]
+    mask = batch.get("mask")
+    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:],
+                        mask[:, 1:] if mask is not None else None)
+
 
 def prefill(params, tokens, cfg, prefix=None):
     return forward(params, tokens, cfg, mode="prefill", prefix=prefix)

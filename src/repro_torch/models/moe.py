@@ -28,8 +28,9 @@ packed leaf is decoded on dispatch (``dense_weight``), the router in
 float32, the experts straight into the rows' dtype (the bits of the
 float32 decode, cast — what ``_expert_compute``'s casts give in the
 reference).  The expert-parallel ``shard_map`` branches and the 2-D
-decode sharding of the reference need a mesh and wait for ROADMAP A10;
-with no mesh the reference takes the local branch, as the port does.
+decode sharding of the reference need a mesh and wait for ROADMAP
+"A10, model half"; with no mesh the reference takes the local branch, as
+the port does.
 """
 from __future__ import annotations
 

@@ -18,12 +18,10 @@ port's servers resolves to.
   and load shedding (:class:`RejectedError`).
 * **Supervision** — :class:`RestartPolicy`: a crashed worker thread
   backs off and re-enters its loop with pending work preserved
-  (``serving.AsyncWorkerLoop._run_worker``).
-
-The reference's ``ServingSupervisor`` degrades a ``sharded`` lane over
-an elastic mesh; the port has no sharded backend yet, so a
-``supervisor=`` argument raises ``NotImplementedError`` naming ROADMAP
-A10 (here and in ``AsyncWorkerLoop.configure_resilience``).
+  (``serving.AsyncWorkerLoop._run_worker``).  :class:`ServingSupervisor`
+  watches dispatch latency and walks a ``sharded`` lane down a
+  degradation ladder over an elastic mesh: one device fewer a rung,
+  ``tiled`` at the bottom.
 
 Crash faults (:class:`InjectedCrash`) derive from ``BaseException`` so
 they pass through the per-batch ``except Exception`` handlers and kill
@@ -37,11 +35,14 @@ import time
 
 import numpy as np
 
+from repro_torch.runtime.elastic import ElasticMeshManager, HostSet
+from repro_torch.runtime.straggler import StragglerConfig, StragglerMonitor
+
 __all__ = [
     "TransientDispatchError", "InjectedFault", "InjectedCrash",
     "DeviceLost", "WorkerCrashed", "DeadlineExceeded", "RejectedError",
     "QuarantinedError", "Fault", "FaultPlan", "FaultInjector",
-    "RetryPolicy", "RestartPolicy", "retry_call", "refuse_supervisor",
+    "RetryPolicy", "RestartPolicy", "retry_call", "ServingSupervisor",
     "SITE_SERVER_WORKER", "SITE_SERVER_DISPATCH", "SITE_BATCHER_WORKER",
     "SITE_BATCHER_PREFILL", "SITE_BATCHER_DECODE", "SITE_SHARDED_DISPATCH",
     "ALL_SITES",
@@ -52,23 +53,11 @@ SITE_SERVER_DISPATCH = "server.dispatch"
 SITE_BATCHER_WORKER = "batcher.worker"
 SITE_BATCHER_PREFILL = "batcher.prefill"
 SITE_BATCHER_DECODE = "batcher.decode"
-# no port code fires it before ROADMAP A10 (the sharded backend); kept so
-# that plans over ALL_SITES are the reference's plans
 SITE_SHARDED_DISPATCH = "sharded.dispatch"
 
 ALL_SITES = (SITE_SERVER_WORKER, SITE_SERVER_DISPATCH, SITE_BATCHER_WORKER,
              SITE_BATCHER_PREFILL, SITE_BATCHER_DECODE,
              SITE_SHARDED_DISPATCH)
-
-
-def refuse_supervisor(supervisor) -> None:
-    """Raise for a serving supervisor: it degrades a sharded lane, which
-    the port does not have before ROADMAP A10."""
-    if supervisor is not None:
-        raise NotImplementedError(
-            "supervisor=: the serving supervisor degrades a sharded lane "
-            "over an elastic mesh, and the port has no sharded backend "
-            "yet (ROADMAP A10)")
 
 
 # ---------------------------------------------------------------------------
@@ -329,29 +318,33 @@ class RestartPolicy:
         return self.backoff_s * self.backoff_mult ** n_restarts
 
 
-def retry_call(fn, *, policy: RetryPolicy | None = None, supervisor=None,
-               rng=None):
-    """Run ``fn()`` under the retry ladder.
+def retry_call(fn, *, policy: RetryPolicy | None = None,
+               supervisor: "ServingSupervisor | None" = None, rng=None):
+    """Run ``fn()`` under the request-robustness ladder.
 
     * Transient failures (``policy.is_transient``) retry with backoff +
       jitter, at most ``policy.max_retries`` times; exhaustion raises
       :class:`QuarantinedError` chaining the last failure.
-    * Everything else re-raises at once (:class:`DeviceLost` included:
-      degrading past it is the supervisor's, ROADMAP A10).
+    * :class:`DeviceLost` asks the supervisor to degrade the lane and
+      retries on the new one (bounded by the ladder depth — at the
+      bottom the loss re-raises).
+    * Everything else re-raises at once.
 
-    With no ``policy`` this is exactly ``fn()``.  ``fn`` must give on a
-    re-run what a first clean run gives: the batcher's steps write the
-    pool in place, and ``core.batching`` argues why re-running them is
-    that."""
-    refuse_supervisor(supervisor)
-    if policy is None:
+    With ``policy`` and ``supervisor`` both ``None`` this is exactly
+    ``fn()``.  ``fn`` must give on a re-run what a first clean run
+    gives: the batcher's steps write the pool in place, and
+    ``core.batching`` argues why re-running them is that."""
+    if policy is None and supervisor is None:
         return fn()
     attempt = 0
     while True:
         try:
             return fn()
+        except DeviceLost:
+            if supervisor is None or supervisor.notify_device_loss() is None:
+                raise
         except Exception as e:          # noqa: BLE001 — classified below
-            if not policy.is_transient(e):
+            if policy is None or not policy.is_transient(e):
                 raise
             if attempt >= policy.max_retries:
                 raise QuarantinedError(
@@ -359,3 +352,159 @@ def retry_call(fn, *, policy: RetryPolicy | None = None, supervisor=None,
                     attempts=attempt + 1) from e
             time.sleep(policy.delay(attempt, rng))
             attempt += 1
+
+
+# ---------------------------------------------------------------------------
+# the serving supervisor: latency watch + degradation ladder
+# ---------------------------------------------------------------------------
+
+class ServingSupervisor:
+    """Watches serving health and executes graceful degradation.
+
+    **Latency watch.**  :meth:`record_latency` feeds each dispatch /
+    decode-step wall time into a :class:`StragglerMonitor` as host 0 of
+    a synthetic 4-host fleet whose other hosts report the warmed-up
+    baseline (median of the first ``warmup`` samples) — so the monitor's
+    fleet-median machinery (EWMA, threshold × median, patience) applies
+    unchanged to a single serving lane.  A sustained flag degrades one
+    rung.
+
+    **Degradation ladder.**  The lane starts as a ``sharded`` backend
+    over N devices.  Each degradation marks one device failed in an
+    :class:`ElasticMeshManager` (devices are modeled as 1-chip hosts)
+    and rebuilds the tile mesh over the largest surviving feasible grid;
+    when no grid is feasible the lane falls back to ``fallback``
+    (default ``tiled``, the single-device lane).  Each sharded rung is a
+    fresh :class:`~repro_torch.core.backends.ShardedBackend` registered
+    as ``<name>@<n>`` — its per-layer shard state is keyed on the mesh,
+    so the first dispatch after a shrink re-shards.  A degradation
+    changes latency, not results, wherever the sharded lane equals
+    ``tiled`` (``ShardedBackend``'s docstring).
+
+    ``device`` names the lane's devices when the base backend has no
+    explicit mesh: the default mesh of that device (every card unless
+    the caller passes ``"cpu"``).
+
+    :meth:`notify_device_loss` degrades immediately (the dispatch that
+    observed the loss retries on the new lane via :func:`retry_call`).
+    ``history`` records every transition for the control plane.
+    """
+
+    def __init__(self, *, backend="sharded", fallback: str = "tiled",
+                 monitor_cfg: StragglerConfig | None = None,
+                 warmup: int = 8, device=None):
+        from repro_torch.core import backends as _backends
+        self._lock = threading.Lock()
+        self._base = _backends.resolve(backend)
+        self._backend = self._base          # guarded-by: _lock
+        self.fallback = fallback
+        self.warmup = max(1, warmup)
+        self.monitor = StragglerMonitor(
+            4, monitor_cfg or StragglerConfig(patience=4))
+        self._warm: list[float] = []        # guarded-by: _lock
+        self._baseline: float | None = None  # guarded-by: _lock
+        self.history: list[dict] = []       # guarded-by: _lock
+        self.degradations = 0               # guarded-by: _lock
+        self._exhausted = False             # guarded-by: _lock
+        devices = self._lane_devices(device)
+        hosts = HostSet(n_hosts=len(devices), chips_per_host=1,
+                        healthy=np.ones(len(devices), dtype=bool))
+        self.mesh_manager = ElasticMeshManager(
+            hosts, model_parallel=1, global_batch=len(devices))
+        self._devices = devices
+
+    def _lane_devices(self, device) -> list:
+        mesh = getattr(self._base, "_mesh", None)
+        if mesh is not None:
+            return list(mesh)
+        from repro_torch.sharding import rules
+        return list(rules.tile_mesh(device=device))
+
+    # -- state --------------------------------------------------------------
+    @property
+    def backend(self):
+        """The current lane (a Backend instance) — what dispatches
+        should execute on right now."""
+        with self._lock:
+            return self._backend
+
+    @property
+    def backend_name(self) -> str:
+        return self.backend.name
+
+    @property
+    def baseline_s(self) -> float | None:
+        with self._lock:
+            return self._baseline
+
+    # -- events -------------------------------------------------------------
+    def record_latency(self, dt_s: float) -> str | None:
+        """Feed one dispatch/step wall time.  Returns the new lane name
+        when this observation tipped a sustained-degradation rung, else
+        ``None``."""
+        with self._lock:
+            if self._baseline is None:
+                self._warm.append(float(dt_s))
+                if len(self._warm) >= self.warmup:
+                    self._baseline = float(np.median(self._warm))
+                return None
+            fleet = np.array([dt_s] + [self._baseline] * 3)
+            res = self.monitor.observe(fleet)
+            if res["actions"].get(0) is None:
+                return None
+            name = self._degrade_locked(
+                f"latency sustained {res['ratio'][0]:.2f}x baseline "
+                f"({res['actions'][0]})")
+            # the flag condition was measured against the OLD lane;
+            # restart the evidence window for the new one
+            self.monitor.flag_streak[:] = 0
+            self.monitor.initialized = False
+            return name
+
+    def notify_device_loss(self, exc: BaseException | None = None
+                           ) -> str | None:
+        """A dispatch observed a lost device: degrade NOW.  Returns the
+        new lane name, or ``None`` when the ladder is exhausted (the
+        caller should let the loss propagate)."""
+        with self._lock:
+            return self._degrade_locked(
+                f"device loss{f': {exc}' if exc else ''}")
+
+    def degrade(self, reason: str = "manual") -> str | None:
+        """Force one rung down the ladder (control-plane surface)."""
+        with self._lock:
+            return self._degrade_locked(reason)
+
+    # -- internals ----------------------------------------------------------
+    def _degrade_locked(self, reason: str) -> str | None:
+        from repro_torch.core import backends as _backends
+        if self._exhausted:
+            return None
+        prev = self._backend.name
+        healthy = np.nonzero(self.mesh_manager.hosts.healthy)[0]
+        if healthy.size:
+            self.mesh_manager.mark_failed(int(healthy[-1]))
+        try:
+            n_dev, _ = self.mesh_manager.current_grid()
+        except ValueError:
+            # no feasible grid survives — final rung: single-device lane
+            new = _backends.get_backend(self.fallback)
+            self._exhausted = True
+        else:
+            new = _backends.ShardedBackend(
+                self._devices[:n_dev], name=f"{self._base.name}@{n_dev}")
+            # carry the fault injector down the ladder so a chaos plan
+            # can lose a second device from the already-shrunken lane
+            new._injector = getattr(self._backend, "_injector", None)
+            # re-register so the rung is selectable by name everywhere a
+            # backend name is accepted; its first dispatch re-shards
+            _backends.register(new, overwrite=True)
+        self._backend = new
+        self.degradations += 1
+        self.history.append({
+            "event": "degrade", "reason": reason, "from": prev,
+            "to": new.name, "t": time.monotonic(),
+            "surviving_devices": int(
+                self.mesh_manager.hosts.healthy_chips),
+        })
+        return new.name

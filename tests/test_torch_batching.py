@@ -322,9 +322,12 @@ def test_deadline_and_shedding(setup):
 
 
 def test_configure_resilience_and_rejections(setup):
+    from repro_torch.runtime.resilience import ServingSupervisor
     cb = _batcher(setup, n_slots=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="A10"):
-        cb.configure_resilience(supervisor=object())
+    sup = ServingSupervisor(backend="sharded", device="cpu")
+    assert cb.configure_resilience(supervisor=sup) is cb
+    assert cb._supervisor is sup
+    assert cb.configure_resilience()._supervisor is None
     for kw in ({"n_slots": 0}, {"max_len": 1}, {"max_pending": 0}):
         with pytest.raises(ValueError):
             _batcher(setup, **kw)

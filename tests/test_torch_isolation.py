@@ -56,7 +56,13 @@ def test_port_modules_cover_the_slice():
               "repro_torch.models.encdec", "repro_torch.configs.xlstm_350m",
               "repro_torch.configs.jamba_v01_52b",
               "repro_torch.configs.internvl2_26b",
-              "repro_torch.configs.seamless_m4t_medium"):
+              "repro_torch.configs.seamless_m4t_medium",
+              "repro_torch.sharding", "repro_torch.sharding.rules",
+              "repro_torch.runtime.straggler", "repro_torch.runtime.elastic",
+              "repro_torch.runtime.loop", "repro_torch.optim",
+              "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+              "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.checkpoint.manager", "repro_torch.launch.train"):
         assert m in mods
 
 

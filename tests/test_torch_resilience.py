@@ -1,8 +1,9 @@
 """The port's serving resilience (``repro_torch.runtime.resilience``) on
-the CPU, mirroring ``tests/test_resilience.py`` without its three
-serving-supervisor tests (the supervisor degrades a sharded lane, which
-waits for ROADMAP A10; so does the mixed run's device loss): seeded
-fault plans are deterministic, site-safe and the reference's own plans;
+the CPU, mirroring ``tests/test_resilience.py`` (its three
+serving-supervisor tests and the mixed run's device loss are mirrored in
+``tests/test_torch_sharded.py``, beside the sharded lane they degrade):
+seeded fault plans are deterministic, site-safe and the reference's own
+plans;
 injected dispatch failures retry to bit-identical results with no
 request lost or double-counted; budget exhaustion quarantines exactly
 the poison chunk; shedding and deadlines; worker crashes restart with
@@ -215,9 +216,20 @@ def test_retry_call_exhaustion_quarantines_with_cause():
     assert len(calls) == 3
     # no policy: exactly fn()
     assert res.retry_call(lambda: 5) == 5
-    # the supervisor waits for the sharded lane
-    with pytest.raises(NotImplementedError, match="A10"):
-        res.retry_call(lambda: 5, supervisor=object())
+    # a device loss degrades the supervisor's lane and retries there; at
+    # the bottom of the ladder the loss re-raises
+    sup = res.ServingSupervisor(backend="sharded", device="cpu")
+    lanes = []
+
+    def lost():
+        lanes.append(sup.backend_name)
+        raise res.DeviceLost("lost")
+
+    with pytest.raises(res.DeviceLost):
+        res.retry_call(lost, supervisor=sup)
+    assert lanes == ["sharded", "tiled"] and sup.degradations == 1
+    with pytest.raises(res.DeviceLost):        # without a supervisor
+        res.retry_call(lost, policy=res.RetryPolicy(max_retries=2))
 
 
 def test_retry_policy_backoff_grows_and_jitters_bounded():

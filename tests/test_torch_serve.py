@@ -234,12 +234,25 @@ def test_unported_paths_raise_with_the_roadmap_item(setup):
             get_model(ssm).init_cache(ssm, 1, 4, device="cpu",
                                       paged=PagedSpec(page_size=2, max_len=4,
                                                       n_slots=1))
+    # the serving supervisor (A10) installs on the batcher, and
+    # retry_call degrades its lane on a device loss and retries there
+    from repro_torch.runtime.resilience import (DeviceLost,
+                                                ServingSupervisor, retry_call)
     cb = ContinuousBatcher(tparams, tcfg, n_slots=1, max_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        cb.configure_resilience(supervisor=object())
-    from repro_torch.runtime.resilience import retry_call
-    with pytest.raises(NotImplementedError, match="A10"):
-        retry_call(lambda: 1, supervisor=object())
+    sup = ServingSupervisor(backend="sharded", device="cpu")
+    assert cb.configure_resilience(supervisor=sup) is cb
+    assert cb._supervisor is sup
+    calls = []
+
+    def lose_once():
+        calls.append(sup.backend_name)
+        if len(calls) == 1:
+            raise DeviceLost("lost")
+        return 1
+
+    assert retry_call(lose_once, supervisor=sup) == 1
+    assert calls == ["sharded", "tiled"]
+    assert cb.configure_resilience()._supervisor is None
 
 
 @pytest.mark.parametrize("use_codr", [False, True])

@@ -344,25 +344,35 @@ def test_stop_from_a_done_callback_raises(compiled, rng):
 
 @pytest.mark.parametrize("kw", ["injector", "retry_policy", "restart_policy",
                                 "supervisor"])
-def test_configure_resilience_refuses_until_ported(compiled, kw):
-    """The serving supervisor waits for ROADMAP A10: with it, nothing is
-    installed; the three ported hooks install (and clear) alone."""
+def test_configure_resilience_refuses_until_ported(compiled, kw, rng):
+    """Each hook installs alone and beside the serving supervisor (ROADMAP
+    A10, ported), and clears; a server with the supervisor dispatches on
+    its lane, which a degradation moves to ``tiled`` with the same
+    rows."""
     from repro_torch.runtime import resilience as res
     hooks = {"injector": res.FaultInjector(res.FaultPlan()),
              "retry_policy": res.RetryPolicy(),
              "restart_policy": res.RestartPolicy(),
-             "supervisor": object()}
+             "supervisor": res.ServingSupervisor(backend="sharded",
+                                                 device="cpu")}
     server = compiled.serve()
-    with pytest.raises(NotImplementedError, match="A10"):
-        server.configure_resilience(**{kw: hooks[kw], "supervisor":
-                                       object()})
-    assert server._injector is server._retry_policy is None
-    assert server._restart_policy is None
-    if kw != "supervisor":
-        assert server.configure_resilience(**{kw: hooks[kw]}) is server
-        assert getattr(server, "_" + kw) is hooks[kw]
+    sup = (hooks["supervisor"] if kw == "supervisor"
+           else res.ServingSupervisor(backend="sharded", device="cpu"))
+    assert server.configure_resilience(**{kw: hooks[kw],
+                                          "supervisor": sup}) is server
+    assert getattr(server, "_" + kw) is hooks[kw]
+    assert server._supervisor is sup
+    x = _img(rng)
+    plain = compiled.serve().serve([x])[0]
+    lane = server._supervisor
+    assert lane.backend_name == "sharded"
+    np.testing.assert_array_equal(server.serve([x])[0], plain)
+    assert lane.degrade("test") == "tiled"
+    np.testing.assert_array_equal(server.serve([x])[0], plain)
+    assert len(lane._warm) == 2                 # one latency per dispatch
     assert server.configure_resilience() is server
     assert getattr(server, "_" + kw, None) is None
+    assert server._supervisor is None
 
 
 def test_server_argument_validation(compiled):
