@@ -19,8 +19,13 @@ checkpoint moves between the two packages.
   a background writer thread does the file I/O; :meth:`wait` joins it
   before the next save or exit, and re-raises what the writer raised.
 * **Restore** — leaves are loaded on the host and placed on each target
-  leaf's device in its dtype.  Placement against a mesh's shardings
-  (``shardings=``) waits for ROADMAP "A10, model half".
+  leaf's device in its dtype; or, with ``shardings=`` (a tree of
+  :class:`~repro_torch.sharding.rules.NamedSharding` of the target's
+  structure), each leaf is held as blocks under its spec on its mesh
+  (:func:`~repro_torch.sharding.rules.place`), in its stored dtype as
+  the reference's ``device_put`` keeps it, and reads back whole with
+  ``.full()``.  The mesh need not be the one the state was saved from
+  (elastic restore: the file holds whole leaves).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import leaves, unflatten_like
+from repro_torch.sharding.rules import place
 
 __all__ = ["CheckpointManager", "restore_latest", "treedef_str"]
 
@@ -170,11 +176,8 @@ class CheckpointManager:
 
     def restore(self, step: int, target_tree, *, shardings=None):
         """Load step ``step``'s leaves and place each on its target
-        leaf's device in its dtype; returns ``(tree, extra)``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=): placing leaves against a mesh's "
-                "shardings waits for ROADMAP \"A10, model half\"")
+        leaf's device in its dtype — or, with ``shardings``, as blocks
+        under its sharding's spec and mesh; returns ``(tree, extra)``."""
         path = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -183,11 +186,19 @@ class CheckpointManager:
             raise ValueError(f"tree structure changed: the checkpoint has "
                              f"{manifest['n_leaves']} leaves, the target "
                              f"{len(targets)}")
+        if shardings is not None:
+            sh = leaves(shardings)
+            if len(sh) != len(targets):
+                raise ValueError(f"{len(sh)} shardings for {len(targets)} "
+                                 f"leaves")
         placed = []
         for i, (meta, target) in enumerate(zip(manifest["leaves"], targets)):
             h = _load_leaf(os.path.join(path, f"leaf_{i}.npy"),
                            meta["dtype"])
-            placed.append(h.to(device=target.device, dtype=target.dtype))
+            if shardings is not None:
+                placed.append(place(h, sh[i].spec, sh[i].mesh))
+            else:
+                placed.append(h.to(device=target.device, dtype=target.dtype))
         return unflatten_like(target_tree, placed), manifest["extra"]
 
 

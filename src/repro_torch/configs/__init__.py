@@ -7,6 +7,7 @@ the dense family (qwen2.5-3b, qwen1.5-4b, command-r-plus-104b,
 qwen3-32b), the encoder-decoder seamless-m4t-medium, the MLA / MoE
 family (deepseek-v2-236b, granite-moe-1b-a400m), the vision-prefixed
 internvl2-26b, and the SSM and hybrid xlstm-350m and jamba-v0.1-52b.
+``applicable_shapes`` says which of ``SHAPES`` each one runs.
 """
 from __future__ import annotations
 
@@ -38,6 +39,18 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
     return REGISTRY[arch]
+
+
+def applicable_shapes(cfg: ModelConfig) -> dict[str, str]:
+    """shape_name → 'run' | reason-to-skip, as the reference's registry
+    gives them (the dry-run records the reason)."""
+    out = {}
+    for name, shp in SHAPES.items():
+        if name == "long_500k" and not cfg.sub_quadratic:
+            out[name] = "SKIP: 512k dense-attention decode is the quadratic regime this shape excludes"
+        else:
+            out[name] = "run"
+    return out
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
@@ -75,4 +88,4 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
 
 
 __all__ = ["REGISTRY", "ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig",
-           "get_config", "smoke_variant"]
+           "get_config", "applicable_shapes", "smoke_variant"]

@@ -10,9 +10,9 @@ elastic restart (the cursor is part of the checkpoint).
 
 The same module provides the modality-frontend stubs: precomputed
 frame/patch embeddings per the assignment spec.  Batches are host NumPy;
-the train step moves them to its device.  ``make_batch_specs`` (shape
-specs for the reference's ``build_cell``) waits with
-``launch/steps.py`` (ROADMAP "A10, model half").
+the train step moves them to its device.  ``make_batch_specs`` gives a
+global batch's shapes and dtypes as meta tensors (the reference's
+``ShapeDtypeStruct`` records; nothing allocated).
 """
 from __future__ import annotations
 
@@ -78,3 +78,24 @@ def host_batch_iterator(cfg: DataConfig, start_step: int = 0):
     while True:
         yield step, ds.batch(step)
         step += 1
+
+
+def make_batch_specs(model_cfg, shape_cfg):
+    """Meta tensors of a global batch's shapes and dtypes (the
+    reference's ``ShapeDtypeStruct`` records): ``tokens`` int32 and, for a
+    frontend or encoder-decoder model, a bfloat16 ``prefix``."""
+    import torch
+    b, s = shape_cfg.global_batch, shape_cfg.seq_len
+
+    def spec(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    specs = {}
+    if model_cfg.frontend or model_cfg.family == "encdec":
+        fs = model_cfg.frontend_seq or s
+        specs["prefix"] = spec((b, fs, model_cfg.d_model), torch.bfloat16)
+        tok_len = s if model_cfg.family == "encdec" else max(s - fs, 1)
+        specs["tokens"] = spec((b, tok_len), torch.int32)
+    else:
+        specs["tokens"] = spec((b, s), torch.int32)
+    return specs

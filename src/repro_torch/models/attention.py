@@ -12,9 +12,10 @@ runs in float32 over bfloat16 operands (the reference's ``_einsum_f32``
 on an executing backend).
 Decode runs against a contiguous cache or a paged one
 (:class:`repro_torch.models.cache.PagedKV`, the continuous batcher's
-pool).  The sequence-parallel ``decode_attn="dist"`` lane of the
-reference needs a mesh and waits for ROADMAP "A10, model half"; with one
-device the reference takes the standard lane, and so does the port.
+pool), or, with ``cfg.decode_attn == "dist"`` under a mesh context, the
+sequence-parallel lane :func:`decode_attention_dist`: the cache held as
+sequence blocks, one per ``model`` position, each block attended on its
+own device and the partial softmaxes combined in shard order.
 """
 from __future__ import annotations
 
@@ -26,12 +27,14 @@ from repro_torch.models import cache as cache_lib
 from repro_torch.models.common import (apply_rope, dense_init,
                                        dense_weight, linear, norm_apply,
                                        norm_init, rms_norm)
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import current_ctx, maybe_constrain
 
 __all__ = ["flash_attention", "decode_positions", "cache_update",
-           "decode_attention", "gqa_init", "gqa_forward", "gqa_decode",
-           "gqa_cache_init", "gqa_cache_init_paged", "mla_init",
-           "mla_forward", "mla_decode", "mla_cache_init",
-           "mla_cache_init_paged"]
+           "decode_attention", "decode_attention_dist", "gqa_init",
+           "gqa_forward", "gqa_decode", "gqa_cache_init",
+           "gqa_cache_init_paged", "mla_init", "mla_forward", "mla_decode",
+           "mla_cache_init", "mla_cache_init_paged"]
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -160,6 +163,110 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, sq, hq, dv).to(q.dtype)
 
 
+def decode_attention_dist(q: torch.Tensor, k_cache, v_cache,
+                          k_new: torch.Tensor, v_new: torch.Tensor, pos, *,
+                          scale: float | None = None):
+    """Sequence-parallel decode attention with an in-block cache update —
+    the reference's ``shard_map`` lane on the port's single-controller
+    mesh.  Returns ``(out, k_cache, v_cache)``.
+
+    The cache is held as sequence blocks over ``model`` (a
+    :class:`~repro_torch.sharding.rules.ShardedTensor` placed under
+    ``P(bspec, "model", None, None)``; a whole tensor is read as views
+    of those blocks).  The batch is split over the batch axes where B
+    divides them, else replicated (the reference's ``bspec``).  Only the
+    block owning ``pos`` is written, in place: by slicing for an int
+    ``pos``, and for a 0-d tensor ``pos`` by the reference's
+    write-or-keep at the clamped slot in every block (no host read of
+    ``pos``).  Each block computes its partial ``(m, l, acc)`` on its own
+    device; the combine (max, correction, sums) runs on ``q``'s device
+    in ascending shard order, so the lane gives the same bits on every
+    run.  The blocks are never concatenated.  Without a context, with a
+    model axis of size 1, or when S does not divide it, the standard
+    lane runs, as in the reference."""
+    ctx = current_ctx()
+    b, sq, hq, dk = q.shape
+    _, s, hkv, dv = v_cache.shape
+    msize = ctx.axis_size("model") if ctx is not None else 1
+    if msize <= 1 or s % msize:
+        if isinstance(k_cache, rules.ShardedTensor):
+            raise ValueError("a sharded cache needs the dist lane's mesh: "
+                             f"model axis {msize}, S = {s}")
+        k_cache = cache_update(k_cache, k_new, pos)
+        v_cache = cache_update(v_cache, v_new, pos)
+        return (decode_attention(q, k_cache, v_cache, pos, scale=scale),
+                k_cache, v_cache)
+    s_loc = s // msize
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    g = hq // hkv
+    n_b = rules.batch_split(ctx, b)
+    b_loc = b // n_b
+    outs = []
+    for bi in range(n_b):
+        rows = slice(bi * b_loc, (bi + 1) * b_loc)
+        parts = []
+        for j in range(msize):
+            seq = slice(j * s_loc, (j + 1) * s_loc)
+            k_l = rules.region(k_cache, (rows, seq), write=True)
+            v_l = rules.region(v_cache, (rows, seq), write=True)
+            dev = k_l.device
+            _write_block(k_l, k_new[rows], pos, j * s_loc)
+            _write_block(v_l, v_new[rows], pos, j * s_loc)
+            q_l = q[rows].to(dev).reshape(b_loc, sq, hkv, g, dk)
+            sc = _einsum_f32("bqhgd,bshd->bhgqs", q_l, k_l) * scale
+            mask = _block_visible(pos, j * s_loc, s_loc, dev)
+            sc = torch.where(mask[None, None, None, None, :], sc, -1e30)
+            m_l = sc.amax(dim=-1)
+            p = torch.exp(sc - m_l[..., None])
+            l_l = p.sum(dim=-1)
+            acc_l = _einsum_f32("bhgqs,bshd->bhgqd", p.to(v_l.dtype), v_l)
+            parts.append(tuple(t.to(q.device) for t in (m_l, l_l, acc_l)))
+        m_g = parts[0][0]
+        for m_l, _, _ in parts[1:]:
+            m_g = torch.maximum(m_g, m_l)
+        l_g = acc_g = None
+        for m_l, l_l, acc_l in parts:
+            corr = torch.exp(m_l - m_g)
+            lc, ac = l_l * corr, acc_l * corr[..., None]
+            l_g = lc if l_g is None else l_g + lc
+            acc_g = ac if acc_g is None else acc_g + ac
+        if bi == 0:       # pmax, psum, psum; one row block a device
+            for t in (m_g, l_g, acc_g):
+                rules.record_collective("all-reduce", t.shape, t.dtype)
+        out = acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+        # (B,Hkv,G,q,Dv) → (B,q,Hq,Dv)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b_loc, sq, hq, dv))
+    out = outs[0] if n_b == 1 else torch.cat(outs)
+    return out.to(q.dtype), k_cache, v_cache
+
+
+def _block_visible(pos, start: int, n: int, device) -> torch.Tensor:
+    """``(n,)`` mask of a sequence block's positions ``<= pos`` (an int,
+    compared on the host side of the op, or a 0-d tensor)."""
+    idx = torch.arange(start, start + n, device=device)
+    if isinstance(pos, int):
+        return idx <= pos
+    return idx <= torch.as_tensor(pos, device=device)
+
+
+def _write_block(block: torch.Tensor, new: torch.Tensor, pos,
+                 start: int) -> None:
+    """Write ``new`` (B, 1, ...) into the sequence block starting at
+    ``start`` if it owns ``pos``: an int slices the owner only; a 0-d
+    tensor writes new-or-old at the clamped slot (the reference's form)."""
+    n = block.shape[1]
+    new = new.to(device=block.device, dtype=block.dtype)
+    if isinstance(pos, int):
+        if start <= pos < start + n:
+            block[:, pos - start:pos - start + 1] = new
+        return
+    local = torch.as_tensor(pos, device=block.device) - start
+    slot = torch.clamp(local, 0, n - 1).reshape(1).long()
+    keep = block.index_select(1, slot)
+    owns = (local >= 0) & (local < n)
+    block.index_copy_(1, slot, torch.where(owns, new, keep))
+
+
 # ---------------------------------------------------------------------------
 # GQA attention block
 # ---------------------------------------------------------------------------
@@ -195,6 +302,8 @@ def _qkv(p, x, cfg, positions):
         k = rms_norm(k, p["k_norm"]["w"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if hq % 16 == 0:  # hint only when cleanly divisible by any model axis
+        q = maybe_constrain(q, "batch", None, "model", None)
     return q, k, v
 
 
@@ -215,7 +324,9 @@ def gqa_decode(p, x, cfg, cache, pos):
     """Single-token decode.  cache = (k, v), each (B, S, Hkv, hd) or a
     :class:`~repro_torch.models.cache.PagedKV`, updated in place at
     ``pos`` (scalar, or per-row (B,) when the batch is a continuous-
-    batching slot pool whose rows sit at different positions)."""
+    batching slot pool whose rows sit at different positions).  The
+    sequence-parallel ``dist`` lane needs a uniform write position, so
+    per-row ``pos`` always takes the standard lane."""
     k_cache, v_cache = cache
     positions = decode_positions(pos, x.shape[0], device=x.device)
     q, k_new, v_new = _qkv(p, x, cfg, positions)
@@ -226,6 +337,10 @@ def gqa_decode(p, x, cfg, cache, pos):
         k_cache = k_cache.update(k_new, pos)
         v_cache = v_cache.update(v_new, pos)
         out = decode_attention(q, k_cache.gather(), v_cache.gather(), pos)
+    elif cfg.decode_attn == "dist" and (
+            isinstance(pos, int) or torch.as_tensor(pos).dim() == 0):
+        out, k_cache, v_cache = decode_attention_dist(
+            q, k_cache, v_cache, k_new, v_new, pos)
     else:
         k_cache = cache_update(k_cache, k_new, pos)
         v_cache = cache_update(v_cache, v_new, pos)

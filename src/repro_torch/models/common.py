@@ -2,9 +2,10 @@
 counterpart of ``repro.models.common``.
 
 Activations run in bfloat16 (:data:`DEFAULT_DTYPE`) over float32 master
-params, as in the reference.  ``repro.sharding.maybe_constrain`` /
-``constrain_tokens`` are no-ops on one device and are left out here
-(ROADMAP "A10, model half" ports them).
+params, as in the reference.  :func:`constrain_tokens` is the
+reference's sharding hint on ``(B, S, D)`` activations
+(:func:`repro_torch.sharding.rules.maybe_constrain`: it resolves the
+spec under a mesh context and moves no value).
 """
 from __future__ import annotations
 
@@ -17,11 +18,12 @@ import torch.nn.functional as F
 
 from repro_torch.core.codr_linear import (PackedEmbedding, PackedLinear,
                                          dense_weight)
+from repro_torch.sharding.rules import maybe_constrain
 
 __all__ = ["DEFAULT_DTYPE", "PARAM_DTYPE", "dense_init", "embed_init",
            "dense_weight", "linear", "embedding_lookup", "unembed",
            "rms_norm", "layer_norm", "norm_apply", "norm_init", "act_fn", "rope_freqs",
-           "apply_rope", "softmax_xent"]
+           "apply_rope", "softmax_xent", "constrain_tokens"]
 
 DEFAULT_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32    # master params; cast to compute dtype at use
@@ -174,3 +176,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def constrain_tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) activations: batch over data axes."""
+    return maybe_constrain(x, "batch", None, None)

@@ -27,9 +27,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (DEFAULT_DTYPE, embed_init,
-                                       embedding_lookup, linear, norm_apply,
-                                       norm_init, softmax_xent, unembed)
+from repro_torch.models.common import (DEFAULT_DTYPE, constrain_tokens,
+                                       embed_init, embedding_lookup, linear,
+                                       norm_apply, norm_init, softmax_xent,
+                                       unembed)
 from repro_torch.models.lm import _layer, _layers
 
 __all__ = ["init_params", "encode", "decode_forward", "train_loss",
@@ -81,7 +82,7 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def encode(params, frames: torch.Tensor, cfg) -> torch.Tensor:
     """frames (B, S_enc, d) precomputed embeddings → encoder output."""
-    x = frames.to(DEFAULT_DTYPE)
+    x = constrain_tokens(frames.to(DEFAULT_DTYPE))
     positions = _positions(*x.shape[:2], x.device)
     for lp in _layers(params["enc_stack"], cfg.n_encoder_layers):
         h = norm_apply(x, lp["norm1"], cfg.norm_type, f32=cfg.norm_f32)
@@ -89,7 +90,7 @@ def encode(params, frames: torch.Tensor, cfg) -> torch.Tensor:
                                   causal=False)
         x = x + out
         h = norm_apply(x, lp["norm2"], cfg.norm_type, f32=cfg.norm_f32)
-        x = x + moe_mod.mlp_forward(lp["mlp"], h, cfg.act)
+        x = constrain_tokens(x + moe_mod.mlp_forward(lp["mlp"], h, cfg.act))
     return norm_apply(x, params["enc_norm"], cfg.norm_type, f32=cfg.norm_f32)
 
 
@@ -122,7 +123,7 @@ def _dec_block(lp, x, cfg, mode, cache, pos, positions, enc_out, enc_kv):
     x = x + linear(out.reshape(b, s, -1), cross["o_proj"])
     h = norm_apply(x, lp["norm2"], cfg.norm_type, f32=cfg.norm_f32)
     x = x + moe_mod.mlp_forward(lp["mlp"], h, cfg.act)
-    return x, new_self, (k, v)
+    return constrain_tokens(x), new_self, (k, v)
 
 
 def decode_forward(params, tokens: torch.Tensor, cfg, enc_out=None, *,
@@ -139,7 +140,8 @@ def decode_forward(params, tokens: torch.Tensor, cfg, enc_out=None, *,
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = embedding_lookup(params["embed"], tokens, DEFAULT_DTYPE)
+    x = constrain_tokens(embedding_lookup(params["embed"], tokens,
+                                          DEFAULT_DTYPE))
     positions = _positions(*x.shape[:2], x.device)
     self_kv, cross_kv = [], []
 

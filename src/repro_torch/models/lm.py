@@ -38,9 +38,10 @@ from repro_torch.core.tree import leaves, map_leaves, unflatten_like
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import (DEFAULT_DTYPE, embed_init,
-                                       embedding_lookup, norm_apply,
-                                       norm_init, softmax_xent, unembed)
+from repro_torch.models.common import (DEFAULT_DTYPE, constrain_tokens,
+                                       embed_init, embedding_lookup,
+                                       norm_apply, norm_init, softmax_xent,
+                                       unembed)
 
 __all__ = ["init_params", "init_cache", "forward", "train_loss", "prefill",
            "decode_step", "recurrent_state", "CapturedDecode"]
@@ -222,7 +223,7 @@ def _block_apply(lp, x, spec, cfg, mode, cache, pos, positions):
         else:
             out = moe_mod.mlp_forward(lp["mlp"], h, cfg.act)
         x = x + out
-    return x, new_cache
+    return constrain_tokens(x), new_cache
 
 
 def forward(params, tokens: torch.Tensor, cfg, *, mode: str = "train",
@@ -245,6 +246,7 @@ def forward(params, tokens: torch.Tensor, cfg, *, mode: str = "train",
     x = embedding_lookup(params["embed"], tokens, DEFAULT_DTYPE)
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    x = constrain_tokens(x)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)

@@ -27,10 +27,28 @@ The router and the expert stacks enter as weights, not matmuls: a
 packed leaf is decoded on dispatch (``dense_weight``), the router in
 float32, the experts straight into the rows' dtype (the bits of the
 float32 decode, cast — what ``_expert_compute``'s casts give in the
-reference).  The expert-parallel ``shard_map`` branches and the 2-D
-decode sharding of the reference need a mesh and wait for ROADMAP
-"A10, model half"; with no mesh the reference takes the local branch, as
-the port does.
+reference).
+
+Under a mesh context the reference's ``shard_map`` branches run on the
+port's single-controller mesh, each position's compute on the device of
+its expert blocks (:func:`repro_torch.sharding.rules.region`: views of a
+:class:`~repro_torch.sharding.rules.ShardedTensor`'s blocks, or of a
+whole stack):
+
+* expert parallel (``model`` > 1, E divisible): model position j routes
+  every token against its ``E/m`` experts at offset ``j·E/m``
+  (:func:`_moe_local` with ``n_local``), and the partial outputs are
+  summed in shard order — the reference's ``psum`` over ``model``;
+* 2-D (decode with ``cfg.moe_decode_2d``, ``model`` and ``data`` > 1,
+  E and ``moe_d_ff`` divisible): position (data i, model j) holds
+  expert slice j and FFN slice i of every expert (``w_experts_{gate,in}``
+  under ``P("model", None, "data")``, ``w_experts_out`` under
+  ``P("model", "data", None)``) and computes its partial over all token
+  rows (the reference's all-gather over ``data``); one sum over both
+  axes, in position order, gives every row its output.
+
+The combines' bytes are counted per device
+(:func:`~repro_torch.sharding.rules.record_collective`).
 """
 from __future__ import annotations
 
@@ -38,6 +56,8 @@ import torch
 
 from repro_torch.core.codr_linear import PackedLinear
 from repro_torch.models.common import act_fn, dense_init, dense_weight, linear
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import current_ctx
 
 __all__ = ["mlp_init", "mlp_forward", "moe_init", "moe_forward"]
 
@@ -121,11 +141,15 @@ def _expert_compute(xs: torch.Tensor, expert: torch.Tensor,
     return torch.bmm(h, wo)[expert, slot]
 
 
-def _moe_local(x2d: torch.Tensor, p, cfg) -> torch.Tensor:
-    """Token-choice top-k over every expert.  x2d (T, d) → (T, d) in
-    ``x2d``'s dtype; ``p`` holds dense weights."""
+def _moe_local(x2d: torch.Tensor, p, cfg, n_local: int | None = None,
+               expert_offset: int = 0) -> torch.Tensor:
+    """Token-choice top-k against the ``n_local`` experts (default: all)
+    starting at ``expert_offset``, whose stacks ``p`` holds (dense).
+    x2d (T, d) → (T, d) partial output in ``x2d``'s dtype: a token's
+    choices outside the slice contribute zero."""
     t = x2d.shape[0]
     e, k = cfg.n_experts, cfg.moe_top_k
+    n_local = e if n_local is None else n_local
     logits = torch.matmul(x2d.to(torch.float32),
                           p["router"].to(torch.float32))
     gates, idx = torch.topk(logits, k, dim=-1)             # (T, k)
@@ -141,7 +165,17 @@ def _moe_local(x2d: torch.Tensor, p, cfg) -> torch.Tensor:
     starts = torch.cumsum(group_sizes, 0) - group_sizes
     slot = torch.arange(t * k, device=x2d.device) - starts[expert]
     wg, wi, wo = (p[name].to(xs.dtype) for name in _EXPERT_KEYS)
-    ys = _expert_compute(xs, expert, slot, t, wg, wi, wo, cfg.act)
+    if n_local == e:
+        ys = _expert_compute(xs, expert, slot, t, wg, wi, wo, cfg.act)
+    else:
+        # rows of other slices go to a spare slot (t) of group 0, which
+        # no row of the slice uses, and are zeroed after
+        local = expert - expert_offset
+        mine = (local >= 0) & (local < n_local)
+        ys = _expert_compute(xs, torch.where(mine, local, 0),
+                             torch.where(mine, slot, t), t + 1, wg, wi, wo,
+                             cfg.act)
+        ys = torch.where(mine[:, None], ys, torch.zeros_like(ys))
     ys = ys * gates.reshape(-1)[order].to(ys.dtype)[:, None]
     # back to (token, choice) order, then each token's k rows summed in
     # the order the sort met them (ascending expert), one add at a time
@@ -157,14 +191,88 @@ def _moe_local(x2d: torch.Tensor, p, cfg) -> torch.Tensor:
     return out
 
 
+def _rows_per_device(ctx, rows: int) -> int:
+    """Token rows one device holds: split over the batch axes where they
+    divide, else all (replicated)."""
+    return rows // rules.batch_split(ctx, rows)
+
+
+def _sum_parts(parts, device) -> torch.Tensor:
+    """The partial outputs summed in the order given, on ``device``."""
+    out = parts[0].to(device)
+    for part in parts[1:]:
+        out = out + part.to(device)
+    return out
+
+
+def _moe_ep(p, x2d, cfg, ctx) -> torch.Tensor:
+    """Expert parallel over ``model``: position j against its ``E/m``
+    experts, every token row, then the sum over ``model``."""
+    msize = ctx.axis_size("model")
+    n_local = cfg.n_experts // msize
+    parts = []
+    for j in range(msize):
+        es = slice(j * n_local, (j + 1) * n_local)
+        pl = {k: rules.region(p[k], (es,)) for k in _EXPERT_KEYS}
+        dev = pl["w_experts_gate"].device
+        pl["router"] = p["router"].to(dev)
+        parts.append(_moe_local(x2d.to(dev), pl, cfg, n_local, es.start))
+    out = _sum_parts(parts, x2d.device)
+    rules.record_collective("all-reduce", (_rows_per_device(
+        ctx, x2d.shape[0]), x2d.shape[1]), out.dtype)
+    return out
+
+
+def _moe_2d(p, x2d, cfg, ctx) -> torch.Tensor:
+    """Decode-time 2-D expert sharding: position (data i, model j) holds
+    experts ``j·E/m …`` with FFN columns ``i·f/d …`` and computes its
+    partial for every token row; one sum over (data, model)."""
+    msize, dsize = ctx.axis_size("model"), ctx.axis_size("data")
+    n_local = cfg.n_experts // msize
+    f_local = cfg.moe_d_ff // dsize
+    parts = []
+    for pos in rules.positions(ctx, "data", "model"):
+        es = slice(pos["model"] * n_local, (pos["model"] + 1) * n_local)
+        fs = slice(pos["data"] * f_local, (pos["data"] + 1) * f_local)
+        pl = {"w_experts_gate": rules.region(p["w_experts_gate"],
+                                             (es, slice(None), fs)),
+              "w_experts_in": rules.region(p["w_experts_in"],
+                                           (es, slice(None), fs)),
+              "w_experts_out": rules.region(p["w_experts_out"], (es, fs))}
+        dev = pl["w_experts_gate"].device
+        pl["router"] = p["router"].to(dev)
+        parts.append(_moe_local(x2d.to(dev), pl, cfg, n_local, es.start))
+    out = _sum_parts(parts, x2d.device)
+    gathered = (_rows_per_device(ctx, x2d.shape[0]) * dsize, x2d.shape[1])
+    rules.record_collective("all-gather", gathered, x2d.dtype)
+    rules.record_collective("all-reduce", gathered, out.dtype)
+    return out
+
+
 def moe_forward(p, x, cfg, mode: str = "train"):
     """x (B, S, d) → (B, S, d): routed experts plus the shared SwiGLU.
-    ``mode`` is the reference's (it picks a sharded decode lane under a
-    mesh); one device runs the local branch for every mode."""
-    del mode
+    Expert parallel over ``model`` under a mesh context; 2-D expert
+    sharding for decode with ``cfg.moe_decode_2d``; the local branch
+    otherwise (the reference's conditions)."""
     p = _dense_moe_params(p, x.dtype)
     b, s, d = x.shape
-    out = _moe_local(x.reshape(-1, d), p, cfg).reshape(b, s, d).to(x.dtype)
+    ctx = current_ctx()
+    e = cfg.n_experts
+    x2d = x.reshape(-1, d)
+    if (cfg.moe_decode_2d and mode == "decode" and ctx is not None
+            and ctx.axis_size("model") > 1 and ctx.axis_size("data") > 1
+            and e % ctx.axis_size("model") == 0
+            and cfg.moe_d_ff % ctx.axis_size("data") == 0):
+        out = _moe_2d(p, x2d, cfg, ctx)
+    elif (ctx is None or ctx.axis_size("model") == 1
+          or e % ctx.axis_size("model")):
+        if any(isinstance(p[k], rules.ShardedTensor) for k in _EXPERT_KEYS):
+            raise ValueError("sharded expert stacks need an expert lane's "
+                             "mesh")
+        out = _moe_local(x2d, p, cfg)
+    else:
+        out = _moe_ep(p, x2d, cfg, ctx)
+    out = out.reshape(b, s, d).to(x.dtype)
     if "shared" in p:
         out = out + mlp_forward(p["shared"], x, cfg.act)
     return out

@@ -59,7 +59,11 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
     return state
 
 
-def _spans(n: int):
+def _spans(n: int, device: torch.device):
+    """The :data:`CHUNK`-element slices of a leaf; one slice on the meta
+    device, which holds no temporaries to bound (the dry-run)."""
+    if device.type == "meta":
+        return [slice(0, n)]
     return [slice(a, min(a + CHUNK, n)) for a in range(0, n, CHUNK)]
 
 
@@ -70,7 +74,7 @@ def _global_norm(grads) -> torch.Tensor:
     total = 0
     for g in leaves(grads):
         flat = g.reshape(-1)
-        for sl in _spans(flat.numel()):
+        for sl in _spans(flat.numel(), flat.device):
             total = total + torch.sum(torch.square(
                 flat[sl].to(torch.float32)))
     return torch.sqrt(total)
@@ -121,7 +125,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr=None, *,
                 leaves(state["v"]))):
             pf, gf, mf, vf = (t.view(-1) for t in (p, g.reshape(-1), m, v))
             wf = masters[i].view(-1) if masters is not None else pf
-            for sl in _spans(pf.numel()):
+            for sl in _spans(pf.numel(), pf.device):
                 gc = gf[sl].to(torch.float32) * scale
                 new_m = cfg.b1 * mf[sl] + (1 - cfg.b1) * gc
                 new_v = cfg.b2 * vf[sl] + (1 - cfg.b2) * gc * gc

@@ -62,7 +62,9 @@ def test_port_modules_cover_the_slice():
               "repro_torch.runtime.loop", "repro_torch.optim",
               "repro_torch.optim.adamw", "repro_torch.optim.schedule",
               "repro_torch.data", "repro_torch.data.pipeline",
-              "repro_torch.checkpoint.manager", "repro_torch.launch.train"):
+              "repro_torch.checkpoint.manager", "repro_torch.launch.train",
+              "repro_torch.launch.mesh", "repro_torch.launch.steps",
+              "repro_torch.launch.dryrun"):
         assert m in mods
 
 

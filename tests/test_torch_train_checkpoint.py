@@ -33,7 +33,9 @@ from repro.checkpoint import CheckpointManager as JManager
 from repro.checkpoint import restore_latest as jrestore_latest
 from repro_torch.checkpoint import CheckpointManager, restore_latest
 from repro_torch.checkpoint.manager import treedef_str
-from repro_torch.core.tree import leaves
+from repro_torch.core.tree import leaves, leaves_with_path
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.sharding.rules import NamedSharding, P, ShardedTensor
 
 T = 120
 
@@ -96,8 +98,8 @@ def test_no_tmp_dirs_after_commit(tmp_path):
 
 def test_restore_places_on_the_targets_device_and_dtype(tmp_path):
     """Without shardings each leaf lands on its target leaf's device in
-    its dtype; placement against a mesh waits for the model half of
-    A10."""
+    its dtype; with shardings each is held as blocks under its spec on
+    the sharding's mesh, in its stored dtype, and reads back whole."""
     mgr = CheckpointManager(str(tmp_path))
     tree = _tree()
     mgr.save(1, tree, async_=False)
@@ -108,8 +110,19 @@ def test_restore_places_on_the_targets_device_and_dtype(tmp_path):
     assert restored["a"].dtype == torch.float64
     np.testing.assert_array_equal(restored["a"].numpy(),
                                   tree["a"].double().numpy())
-    with pytest.raises(NotImplementedError, match="A10, model half"):
-        mgr.restore(1, tree, shardings=tree)
+    mesh = make_host_mesh(2, 2, device="cpu")
+    shardings = {"a": NamedSharding(mesh, P("data", "model")),
+                 "b": {"c": NamedSharding(mesh, P("model")),
+                       "d": NamedSharding(mesh, P())}}
+    placed, _ = mgr.restore(1, tree, shardings=shardings)
+    for path in ("a", "b/c", "b/d"):
+        got = dict(leaves_with_path(placed))[path]
+        want = dict(leaves_with_path(tree))[path]
+        assert isinstance(got, ShardedTensor) and got.dtype == want.dtype
+        assert torch.equal(got.full(), want)
+    assert placed["a"].block_shape == (4, 2)
+    with pytest.raises(ValueError, match="shardings for"):
+        mgr.restore(1, tree, shardings={"a": shardings["a"]})
     with pytest.raises(ValueError, match="tree structure changed"):
         mgr.restore(1, {"a": tree["a"]})
 
