@@ -47,6 +47,17 @@ calls:
   round P to bf16 (SDPA, and the plain version so changed) must fail
   that bound.  At the long prompts both instances are timed.
 
+Right after the CNN path, ``oracle_phase`` holds the codec's scalar
+oracle on that VGG16 model: ``rle.decode_vector`` (one bit-reader field
+at a time) on every vector of the leading layers that fit 20 s of a pool
+of spawned host processes, each equal to its bulk ``decode_layer`` row
+(the cut printed), ``encoded_bits_size_only`` against each vector
+encoded with its own params, ``smm_op_counts`` per layer;
+``CodrConv2D.smm_forward(kernel=True)`` on conv1_1 and conv2_1, one
+``smm_conv`` launch each on ``sm90`` (counted in its row), equal to the
+``smm_kernel`` backend bit for bit; and ``linear_smm`` on a small linear
+head equal to ``q @ x``.
+
 After the three paths, three serving phases drive the same compiled
 models through the port's servers and its checkpoint:
 
@@ -179,10 +190,15 @@ import subprocess
 import sys
 import time
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+# the H100 SXM's dense bf16 tensor-core peak (FLOP/s) and HBM3 bandwidth
+# (bytes/s), datasheet figures kept with the port's roofline constants
+from repro_torch.launch.mesh import (HBM_BW as HBM_BYTES_S,  # noqa: E402
+                                     PEAK_FLOPS_BF16 as BF16_FLOPS)
+
 INT8_TOPS = 1979e12      # H100 SXM dense int8 tensor-core peak, op/s
-BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak, FLOP/s
 F32_FLOPS = 67e12        # H100 SXM float32 peak (CUDA cores), FLOP/s
-HBM_BYTES_S = 3.35e12    # H100 SXM HBM3 bandwidth, bytes/s
 # end-to-end smm_kernel vs tiled: both run the same decoded weights, but
 # smm_kernel re-quantizes every layer's input activations to int8
 # (round-to-nearest, step amax/127), which the float tiled lane does
@@ -720,6 +736,199 @@ def cnn_path(args) -> dict:
                 per_shape=rows, published=published,
                 main_path={"request_ms": req_ms, "encode_s": encode_s,
                            "peak_memory_bytes": peak, "profile": profile})
+
+
+# ---------------------------------------------------------------------------
+# the codec's scalar oracle and the SMM shims on the CNN path's model
+# ---------------------------------------------------------------------------
+
+ORACLE_BUDGET_S = 20.0   # the scalar oracle's share of the script's time
+ORACLE_CHUNK = 512       # vectors a pool task
+
+
+def _oracle_chunk(vectors, ucrs, rows) -> tuple:
+    """One pool task: ``decode_vector`` (the scalar oracle) on each
+    vector against its bulk ``decode_layer`` row, cropped to
+    ``vector_len``; and ``encoded_bits_size_only`` against the vector
+    encoded with its own searched params (the model's vectors share
+    their layer's params, so their own ``total_bits`` is another size).
+    Returns (decode mismatches, size mismatches, seconds)."""
+    import numpy as np
+
+    from repro_torch.core import rle
+    t0 = time.perf_counter()
+    bad_decode = bad_size = 0
+    for v, u, row in zip(vectors, ucrs, rows, strict=True):
+        if not np.array_equal(rle.decode_vector(v), row[: v.vector_len]):
+            bad_decode += 1
+        own = rle.encode_vector(u.unique_vals, u.reps, u.indexes,
+                                u.vector_len)
+        if rle.encoded_bits_size_only(u.unique_vals, u.reps, u.indexes,
+                                      u.vector_len) != own.total_bits:
+            bad_size += 1
+    return bad_decode, bad_size, time.perf_counter() - t0
+
+
+def oracle_phase(args, compiled, hw: int = 226, batch: int = 4) -> dict:
+    """The codec's scalar oracle over the leading layers of the CNN
+    path's VGG16 model that fit ``ORACLE_BUDGET_S`` (a pool of spawned
+    host processes, layer by layer); ``smm_op_counts`` of every layer;
+    ``smm_forward(kernel=True)`` on conv1_1 and conv2_1 against the
+    ``smm_kernel`` backend, its ``smm_conv`` launches counted; and
+    ``linear_smm`` on a small linear head against ``q @ x``."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import rle, smm, ucr
+    from repro_torch.core.backends import get_backend
+    from repro_torch.kernels.smm_conv import ops
+
+    t_phase = time.perf_counter()
+    layers = compiled.model.layers
+    workers = min(8, os.cpu_count() or 1)
+    covered = []
+    t0 = time.perf_counter()
+    # spawn, not fork, after CUDA init; a Pool starts every worker at
+    # once (each imports torch, seconds), where an executor would start
+    # them one submission at a time
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        per_vector = None               # a worker's seconds a vector
+        for layer in layers:
+            code = layer.code
+            n = len(code.vectors)
+            n_tasks = -(-n // ORACLE_CHUNK)
+            if per_vector is not None and time.perf_counter() - t0 \
+                    + per_vector * n / min(workers, n_tasks) > ORACLE_BUDGET_S:
+                break
+            t_layer = time.perf_counter()
+            bulk = rle.decode_layer(code)
+            got = pool.starmap(
+                _oracle_chunk,
+                [(code.vectors[i:i + ORACLE_CHUNK], code.ucr[i:i + ORACLE_CHUNK],
+                  bulk[i:i + ORACLE_CHUNK]) for i in range(0, n, ORACLE_CHUNK)],
+                chunksize=1)
+            bad_decode = sum(g[0] for g in got)
+            bad_size = sum(g[1] for g in got)
+            wall = time.perf_counter() - t_layer
+            cpu = sum(g[2] for g in got)
+            per_vector = cpu / n
+            layer_bits = rle.layer_bits_size_only(
+                code.ucr, max(u.vector_len for u in code.ucr), code.params)
+            say(f"oracle {layer.name}: {n} vectors, decode_vector vs "
+                f"decode_layer {bad_decode} differ, encoded_bits_size_only "
+                f"vs own-param total_bits {bad_size} differ, "
+                f"layer_bits_size_only {layer_bits} vs the code's "
+                f"{code.total_bits}; {wall:.2f} s wall, "
+                f"{cpu / n * 1e6:.1f} us a vector in a worker")
+            if bad_decode or bad_size or layer_bits != code.total_bits:
+                fail(f"oracle {layer.name}: {bad_decode} decoded vectors and "
+                     f"{bad_size} sizes differ; layer bits {layer_bits} vs "
+                     f"{code.total_bits}")
+            covered.append({"layer": layer.name, "vectors": n,
+                            "wall_s": wall, "us_per_vector": cpu / n * 1e6})
+        pool.close()
+        pool.join()
+    oracle_s = time.perf_counter() - t0
+    n_cov = sum(c["vectors"] for c in covered)
+    n_all = sum(len(l.code.vectors) for l in layers)
+    cut = [l.name for l in layers[len(covered):]]
+    say(f"oracle: {len(covered)} of {len(layers)} layers "
+        f"({', '.join(c['layer'] for c in covered)}), {n_cov} of {n_all} "
+        f"vectors, 0 differ, in {oracle_s:.2f} s on {workers} host "
+        f"processes (budget {ORACLE_BUDGET_S} s); cut: "
+        f"{', '.join(cut) if cut else 'none'}")
+
+    # smm_op_counts at each layer's output plane on the main path
+    counts, (ri, ci) = [], (hw, hw)
+    for layer in layers:
+        ro, co = layer.out_hw(ri, ci)
+        c = smm.smm_op_counts(layer.code, ro * co)
+        counts.append({"layer": layer.name, "feature_elems": ro * co, **c})
+        say(f"smm_op_counts {layer.name} ({ro}x{co}): mults {c['mults']}, "
+            f"accums {c['accums']}, dense mults {c['dense_mults']}, unique "
+            f"ratio {c['unique_ratio']:.6f}, density {c['density']:.6f}")
+        ri, ci = ro, co
+
+    # smm_forward(kernel=True) on conv1_1 and conv2_1 at the main path's
+    # inputs (request 0's images, conv1_2's output for conv2_1)
+    img = np.random.default_rng(args.seed + 1).integers(
+        0, 256, size=(batch, hw, hw, 3)).astype(np.float32)
+    x = compiled.model.as_input(img)
+    inputs = {layers[0].name: x}
+    for layer in layers[:2]:
+        x = compiled.backend.conv(layer, x)
+    inputs[layers[2].name] = x
+    forward_ms = launches = 0
+    by_impl = dict.fromkeys(ops.IMPLS, 0)
+    fwd = []
+    for layer in (layers[0], layers[2]):
+        xin = inputs[layer.name]
+        deltas, _, meta = layer.smm_operands()
+        rin = xin.shape[1]
+        ro, co = layer.out_hw(rin, rin)
+        routed = ops.pick_impl(
+            (xin.shape[0], xin.shape[3], rin, rin), tuple(deltas.shape),
+            t_m=meta["t_m"], ro=ro, co=co, stride=layer.stride,
+            int8_weights=meta["int8_weights"])
+        torch.cuda.synchronize()
+        ops.launches = 0
+        ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
+        t0 = time.perf_counter()
+        y = layer.smm_forward(xin, kernel=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(ops.launches_by_impl)
+        launches += ops.launches
+        for i, k in got.items():
+            by_impl[i] += k
+        forward_ms += ms
+        want = get_backend("smm_kernel").conv(layer, xin)
+        same = bool(torch.equal(y, want))
+        row = {"layer": layer.name, "input": list(xin.shape), "impl": routed,
+               "launches_by_impl": got, "bitwise_equal": same, "ms": ms}
+        say(f"smm_forward(kernel=True) {layer.name} {list(xin.shape)}: "
+            f"launches {got} (rule: {routed}), == smm_kernel bit for bit: "
+            f"{same}, {ms:.3f} ms host wall [{SMI}]")
+        if not same:
+            fail(f"smm_forward(kernel=True) {layer.name} differs from the "
+                 f"smm_kernel backend")
+        if got != {i: int(i == routed) for i in ops.IMPLS} or routed != "sm90":
+            fail(f"smm_forward(kernel=True) {layer.name}: launches {got}, "
+                 f"expected one on sm90 (rule: {routed})")
+        if layer is layers[0]:
+            host = layer.smm_forward(xin, kernel=False)
+            err = float((host - y).abs().max())
+            row["host_smm_max_abs_diff"] = err
+            say(f"smm_forward(kernel=False) {layer.name} (NumPy lane on the "
+                f"host) vs kernel=True: max-abs-diff {err}")
+            if err != 0.0:
+                fail(f"smm_forward {layer.name}: host smm vs kernel "
+                     f"max-abs-diff {err}")
+        fwd.append(row)
+
+    # linear_smm on a small linear head, on the host
+    rng = np.random.default_rng(args.seed + 5)
+    w = rng.normal(size=(16, 1024)).astype(np.float32) * 0.1
+    w[rng.random(w.shape) > 0.4] = 0
+    code = ucr.encode_linear_layer(w, n_unique=16)
+    xv = rng.integers(-127, 128, size=1024).astype(np.int64)
+    q = ucr.restrict_unique(ucr.quantize_int8(w)[0], 16).astype(np.int64)
+    lin = smm.linear_smm(xv, code)
+    lin_err = int(np.abs(lin - q @ xv).max())
+    say(f"linear_smm on a (16, 1024) head (density 0.4, U = 16) vs q @ x: "
+        f"max-abs-diff {lin_err}")
+    if lin_err != 0:
+        fail(f"linear_smm vs q @ x max-abs-diff {lin_err}")
+    seconds = time.perf_counter() - t_phase
+    return {"launches": launches, "launches_by_impl": by_impl,
+            "oracle": {"layers": covered, "cut": cut, "vectors": n_cov,
+                       "of_vectors": n_all, "seconds": oracle_s,
+                       "workers": workers},
+            "op_counts": counts, "smm_forward": fwd,
+            "smm_forward_ms": forward_ms, "linear_smm_max_abs_diff": lin_err,
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -3990,14 +4199,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, images and prompts")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.codr_matmul import ops as mm_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4063,6 +4271,9 @@ def main() -> int:
     kernels = [row]
     say(f"cnn path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    _add_phase(kernels[0], "oracle", oracle_phase(args, cnn_model))
+    say(f"oracle phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     row, prefill_qkv, packs = serve_path(args)
     kernels.append(row)
     say(f"serve path: {time.perf_counter() - t0:.1f} s")
@@ -4123,6 +4334,7 @@ def main() -> int:
     kernels[1]["mesh"] = mesh
     say(f"dry-run phase: {time.perf_counter() - t0:.1f} s")
     cost_model_line(cnn_model)
+    say(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all [{SMI}]")
 
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

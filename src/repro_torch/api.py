@@ -14,7 +14,8 @@ lane's compile_params.
     cp = codr.load_packed("ckpt/qwen.codr")        # mapped, on the card
 
 Re-exports :mod:`repro_torch.core.api` (the pipeline),
-:mod:`repro_torch.core.backends` (the pluggable execution backends) and
+:mod:`repro_torch.core.backends` (the pluggable execution backends),
+:mod:`repro_torch.core.codr_linear` (the packed projection leaves) and
 :mod:`repro_torch.checkpoint.packed` (the packed artifact).
 """
 from repro_torch.checkpoint.packed import (CODR_FORMAT_VERSION,  # noqa: F401
@@ -27,10 +28,16 @@ from repro_torch.core.api import (EMBED_INCLUDE,  # noqa: F401
 from repro_torch.core.backends import (Backend, BackendCaps,  # noqa: F401
                                        available_backends, get_backend,
                                        register)
+from repro_torch.core.codr_linear import (PackedEmbedding,  # noqa: F401
+                                          PackedLinear, PackedWeight,
+                                          dense_weight, pack_embedding,
+                                          pack_projection)
 
 __all__ = [
     "LayerSpec", "ModelSpec", "EncodeConfig", "CompiledModel", "compile",
     "PACK_INCLUDE", "EMBED_INCLUDE", "CompiledParams", "compile_params",
+    "PackedLinear", "PackedWeight", "PackedEmbedding", "dense_weight",
+    "pack_projection", "pack_embedding",
     "Backend", "BackendCaps", "available_backends", "get_backend",
     "register",
     "CODR_FORMAT_VERSION", "PackedCheckpointError", "save_packed",

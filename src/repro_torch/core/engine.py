@@ -37,8 +37,8 @@ from repro_torch.core.dataflow import CODR_TILING, ConvShape
 
 __all__ = [
     "CodrConv2D", "CodrLinear", "CodrModel", "LayerStats",
-    "decode_all_tiles", "decode_tile", "full_fp32", "paper_model_shapes",
-    "resolve_device",
+    "build_random_model", "decode_all_tiles", "decode_tile", "full_fp32",
+    "paper_model_shapes", "resolve_device",
 ]
 
 
@@ -311,6 +311,16 @@ class CodrConv2D(_CodrLayer):
                                             self.device)
         return self._smm_ops
 
+    def smm_forward(self, x: torch.Tensor, *, kernel: bool = False
+                    ) -> torch.Tensor:
+        """Shim: run the differential SMM mechanism through the backend
+        registry — ``kernel=False`` → the ``smm`` backend (NumPy faithful
+        execution on the host), ``kernel=True`` → ``smm_kernel`` (the
+        CUDA ``smm_conv`` kernel on the card, its plain version on the
+        CPU).  New code names the backend at compile or run time."""
+        backend = _backends.get_backend("smm_kernel" if kernel else "smm")
+        return backend.conv(self, x)
+
 
 class CodrLinear(_CodrLayer):
     """A fully-connected layer executed from its CoDR code.
@@ -482,3 +492,20 @@ def paper_model_shapes(net: str = "alexnet", n_conv: int = 2,
                                 s.stride))
         ri = ci = None                      # only the first layer is forced
     return shapes
+
+
+def build_random_model(shapes: Sequence[ConvShape], n_out: int, *,
+                       density: float = 0.4, rng=None,
+                       t_m: int = 4, t_n: int = 4,
+                       activation: str | None = "relu",
+                       decode_source: str = "bitstream",
+                       device=None) -> CodrModel:
+    """conv×len(shapes) → linear model with paper-style sparse Gaussian
+    weights; consecutive shapes must be spatially consistent.  A shim
+    over ``ModelSpec.from_shapes`` + ``compile`` (the same draws as the
+    reference's for the same ``rng``); ``device`` as ``compile``'s."""
+    from repro_torch.core import api
+    spec = api.ModelSpec.from_shapes(shapes, n_out=n_out, density=density,
+                                     rng=rng, activation=activation)
+    cfg = api.EncodeConfig(t_m=t_m, t_n=t_n, decode_source=decode_source)
+    return api.compile(spec, cfg, device=device).model

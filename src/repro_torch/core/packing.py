@@ -9,11 +9,14 @@ real bits, not estimates.
 
 Packing is fully vectorized (numpy).  Unpacking of variable-width streams
 *looks* inherently sequential (the width of field ``k+1`` depends on the
-flag bit of field ``k``), but many streams laid back to back advance
-their cursors in lockstep (:func:`escape_field_offsets_batch`), and
-:func:`gather_bitfields` then extracts every payload with shifts and
-masks in one pass.  The scalar :class:`BitReader` is kept as the parity
-oracle.
+flag bit of field ``k``), but because an escape-coded field takes only
+two possible widths the field-start offsets of one stream form a jump
+chain over the bit array that :func:`escape_field_offsets` resolves in
+``O(log n)`` vectorized pointer-doubling passes, and many streams laid
+back to back advance their cursors in lockstep
+(:func:`escape_field_offsets_batch`); :func:`gather_bitfields` then
+extracts every payload with shifts and masks in one pass.  The scalar
+:class:`BitReader` is kept as the parity oracle.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 
 __all__ = [
     "pack_varbits", "unpack_bits", "BitReader",
-    "escape_field_offsets_batch", "gather_bitfields",
+    "escape_field_offsets", "escape_field_offsets_batch", "gather_bitfields",
 ]
 
 
@@ -59,6 +62,41 @@ def unpack_bits(packed: np.ndarray, total_bits: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # vectorized variable-width decode primitives
 # ---------------------------------------------------------------------------
+
+def escape_field_offsets(bits: np.ndarray, n_fields: int,
+                         low_width: int, full_width: int) -> np.ndarray:
+    """Start offsets of ``n_fields`` escape-coded fields in ``bits``.
+
+    Field ``k`` starts at ``o_k``; its total width (flag + payload) is
+    ``low_width`` when ``bits[o_k] == 0`` and ``full_width`` otherwise, so
+    ``o_{k+1} = o_k + width(o_k)`` — a jump chain.  Resolved by pointer
+    doubling: ``offsets[m:2m] = jump^m[offsets[:m]]``, composing the jump
+    table with itself between blocks — ``O(|bits| · log n_fields)``
+    vectorized work instead of a Python loop over fields.  Raises
+    :class:`EOFError` when the last field starts past the end of ``bits``.
+    """
+    offsets = np.empty(n_fields, dtype=np.int64)
+    if n_fields == 0:
+        return offsets
+    t = len(bits)
+    pad = max(low_width, full_width, 1)          # safe gather past the end
+    jump = np.arange(t + pad, dtype=np.int64)
+    jump[:t] += np.where(bits[:t] == 0, low_width, full_width)
+    np.minimum(jump, t + pad - 1, out=jump)
+    offsets[0] = 0
+    m = 1
+    while m < n_fields:
+        k = min(m, n_fields - m)
+        offsets[m : m + k] = jump[offsets[:k]]
+        m *= 2
+        if m < n_fields:                         # compose: jump^m → jump^2m
+            jump = np.minimum(jump[jump], t + pad - 1)
+    if n_fields > 1 and offsets[-1] >= t:
+        raise EOFError(
+            f"bitstream exhausted resolving field offsets: field "
+            f"{n_fields - 1} starts at bit {int(offsets[-1])} of {t}")
+    return offsets
+
 
 def escape_field_offsets_batch(bits: np.ndarray, starts: np.ndarray,
                                counts: np.ndarray, low_width: int,

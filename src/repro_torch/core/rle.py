@@ -14,8 +14,12 @@ tile, paper §II-D step iii):
   (c) **Indexes** — output indexes of every repetition, Δ-coded with the
       same escape scheme; the fallback is the *absolute* index.
 
-The encoder searches each structure's bit-length per layer (§III-C);
-:func:`decode_layer` decodes a whole layer in one vectorized pass.
+The encoder searches each structure's bit-length per layer (§III-C).
+:func:`decode_vector` is the scalar oracle: it reads one field at a time
+with a :class:`~repro_torch.core.packing.BitReader` and rebuilds the
+vector with Python loops, independent of the bulk path;
+:func:`decode_layer` decodes a whole layer in one vectorized pass and is
+held to the oracle.
 """
 from __future__ import annotations
 
@@ -24,13 +28,15 @@ import math
 
 import numpy as np
 
-from repro_torch.core.packing import (escape_field_offsets_batch,
+from repro_torch.core.packing import (BitReader, escape_field_offsets_batch,
                                       gather_bitfields, pack_varbits)
 
 __all__ = [
     "FULL_BITS", "HEADER_BITS", "Stream", "EncodedVector", "encode_vector",
-    "decode_layer", "layer_params_search", "layer_bits_size_only",
-    "delta_transform", "escape_stream_bits", "index_delta_fields",
+    "decode_vector", "decode_escape_stream", "decode_rep_stream",
+    "decode_layer", "decode_layer_vectors", "layer_params_search",
+    "layer_bits_size_only", "encoded_bits_size_only", "delta_transform",
+    "delta_untransform_first", "escape_stream_bits", "index_delta_fields",
 ]
 
 FULL_BITS = 8            # full-precision fallback width for int8 weight deltas
@@ -105,6 +111,24 @@ def encode_escape_stream(values: np.ndarray, low_bits: int, full_bits: int,
     return Stream(packed, nbits, low_bits, len(values), full_bits)
 
 
+def decode_escape_stream(stream: Stream, *, absolute_mode: bool = False) -> np.ndarray:
+    """Decode an escape stream one field at a time: int64 ``(count,)``
+    payloads (unsigned — Δ streams are pre-biased, see
+    :func:`delta_transform`).  With ``absolute_mode`` the result is
+    ``(2, count)``: the payloads and the escape flags (1 = escaped), to
+    rebuild a mixed Δ/absolute position sequence."""
+    reader = BitReader(stream.packed, stream.nbits)
+    out = np.empty(stream.count, dtype=np.int64)
+    escaped = np.zeros(stream.count, dtype=bool)
+    for i in range(stream.count):
+        if reader.read(1):
+            out[i] = reader.read(stream.mode_bits)
+            escaped[i] = True
+        else:
+            out[i] = reader.read(stream.param)
+    return out if not absolute_mode else np.stack([out, escaped.astype(np.int64)])
+
+
 # ---------------------------------------------------------------------------
 # fixed-width repetition-count stream
 # ---------------------------------------------------------------------------
@@ -144,8 +168,15 @@ def encode_rep_stream(entries: np.ndarray, rep_bits: int) -> Stream:
     return Stream(packed, nbits, rep_bits, len(entries), rep_bits)
 
 
+def decode_rep_stream(stream: Stream) -> np.ndarray:
+    """Decode a repetition stream one field at a time: int64 counts."""
+    reader = BitReader(stream.packed, stream.nbits)
+    return np.array([reader.read(stream.param) + 1 for _ in range(stream.count)],
+                    dtype=np.int64)
+
+
 # ---------------------------------------------------------------------------
-# full vector encode
+# full vector encode / scalar decode
 # ---------------------------------------------------------------------------
 
 def delta_transform(unique_vals: np.ndarray) -> np.ndarray:
@@ -158,6 +189,11 @@ def delta_transform(unique_vals: np.ndarray) -> np.ndarray:
         out[0] = unique_vals[0] + 128
         out[1:] = np.diff(unique_vals)
     return out
+
+
+def delta_untransform_first(field: int) -> int:
+    """Inverse of the first field's +128 bias (:func:`delta_transform`)."""
+    return field - 128
 
 
 def index_delta_fields(indexes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -226,6 +262,34 @@ def encode_vector(unique_vals: np.ndarray, reps: np.ndarray,
                                      absolute=idx_abs)
     return EncodedVector(deltas_s, reps_s, indexes_s, vector_len,
                          len(rep_entries), len(indexes))
+
+
+def decode_vector(enc: EncodedVector) -> np.ndarray:
+    """The scalar oracle: rebuild the dense int8 weight vector
+    (``(vector_len,)``) from its three streams, one field and one weight
+    at a time (inverse of UCR + RLE)."""
+    deltas = decode_escape_stream(enc.deltas)
+    reps = decode_rep_stream(enc.reps)
+    vals, escaped = decode_escape_stream(enc.indexes, absolute_mode=True)
+    # absolute indexes from the Δ/absolute mix
+    indexes = np.empty(enc.indexes.count, dtype=np.int64)
+    prev = 0
+    for i in range(enc.indexes.count):
+        indexes[i] = vals[i] if escaped[i] else prev + vals[i]
+        prev = indexes[i]
+
+    weights = np.zeros(enc.vector_len, dtype=np.int8)
+    running = 0
+    cursor = 0
+    for u in range(enc.n_unique):
+        if u == 0:
+            running = delta_untransform_first(int(deltas[0]))
+        else:
+            running += int(deltas[u])
+        for _ in range(int(reps[u])):
+            weights[indexes[cursor]] = running
+            cursor += 1
+    return weights
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +432,13 @@ def decode_layer(code, *, pad_to: int | None = None) -> np.ndarray:
     return out
 
 
+def decode_layer_vectors(code) -> list[np.ndarray]:
+    """Per-vector views of :func:`decode_layer`, each cropped to its own
+    ``vector_len`` (a drop-in for a :func:`decode_vector` loop)."""
+    padded = decode_layer(code)
+    return [padded[i, : v.vector_len] for i, v in enumerate(code.vectors)]
+
+
 def layer_params_search(ucr_vectors, vector_len: int) -> tuple[int, int, int]:
     """Per-layer, per-structure parameter search over ALL of a layer's
     vectors (§III-C: params are stored once per structure per layer)."""
@@ -414,4 +485,28 @@ def layer_bits_size_only(ucr_vectors, vector_len: int,
     return (escape_stream_bits(full_deltas, dp, FULL_BITS)
             + len(entries) * rp
             + escape_stream_bits(all_idx, ip, index_bits)
+            + 3 * HEADER_BITS)
+
+
+def encoded_bits_size_only(unique_vals: np.ndarray, reps: np.ndarray,
+                           indexes: np.ndarray, vector_len: int) -> int:
+    """Total bits of one vector encoded with its own searched params
+    (:func:`encode_vector` with ``params=None``), without materializing
+    a bitstream."""
+    unique_vals = np.asarray(unique_vals, dtype=np.int64)
+    reps = np.asarray(reps, dtype=np.int64)
+    index_bits = max(1, math.ceil(math.log2(max(vector_len, 2))))
+    base_deltas = delta_transform(unique_vals)
+    delta_param = search_delta_param(base_deltas)
+    delta_cost = escape_stream_bits(base_deltas, delta_param,
+                                    FULL_BITS) / max(len(base_deltas), 1)
+    rep_param = search_rep_param(reps, delta_cost)
+    rep_entries, dummy = split_rep_overflow(reps, rep_param)
+    full_deltas = np.zeros(len(rep_entries), dtype=np.int64)
+    full_deltas[~dummy] = base_deltas
+    idx_deltas, _ = index_delta_fields(indexes)
+    index_param = search_index_param(idx_deltas, index_bits)
+    return (escape_stream_bits(full_deltas, delta_param, FULL_BITS)
+            + len(rep_entries) * rep_param
+            + escape_stream_bits(idx_deltas, index_param, index_bits)
             + 3 * HEADER_BITS)

@@ -73,17 +73,26 @@ def ucr_reconstruct(u: UCRVector) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# quantization (paper step ii — 8-bit fixed point, symmetric per-tensor)
+# quantization (paper step ii — 8-bit fixed point, symmetric)
 # ---------------------------------------------------------------------------
 
-def quantize_int8(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Symmetric per-tensor int8 quantization: ``(q, scale)`` with
-    ``w ≈ q * scale``; ``scale`` is a float32 0-d array."""
+def quantize_int8(w: np.ndarray, *, per_channel_axis: int | None = None
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric int8 quantization: ``(q, scale)`` with ``w ≈ q * scale``.
+    Per tensor ``scale`` is a float32 0-d array; with ``per_channel_axis``
+    it is float32 with ``w``'s rank (keepdims), one scale per index of
+    that axis."""
     w = np.asarray(w, dtype=np.float32)
-    amax = np.abs(w).max()
-    scale = np.float32(amax / 127.0 if amax > 0 else 1.0)
+    if per_channel_axis is None:
+        amax = np.abs(w).max()
+        scale = np.float32(amax / 127.0 if amax > 0 else 1.0)
+        q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+        return q, np.asarray(scale)
+    axes = tuple(i for i in range(w.ndim) if i != per_channel_axis)
+    amax = np.abs(w).max(axis=axes, keepdims=True)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
     q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
-    return q, np.asarray(scale)
+    return q, scale
 
 
 def dequantize_int8(q: np.ndarray, scale: np.ndarray) -> np.ndarray:

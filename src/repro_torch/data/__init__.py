@@ -1,7 +1,7 @@
-"""Data pipeline of the port (``repro.data`` without
-``make_batch_specs``)."""
+"""Data pipeline of the port (``repro.data``)."""
 from repro_torch.data.pipeline import (DataConfig,  # noqa: F401
                                        SyntheticTokenDataset,
-                                       host_batch_iterator)
+                                       host_batch_iterator, make_batch_specs)
 
-__all__ = ["DataConfig", "SyntheticTokenDataset", "host_batch_iterator"]
+__all__ = ["DataConfig", "SyntheticTokenDataset", "make_batch_specs",
+           "host_batch_iterator"]

@@ -81,6 +81,16 @@ class CellOptions:
     serve_weight_dtype: str = "bf16"
     cache_dtype: str = "bf16"
 
+    def tag(self) -> str:
+        """The non-default levers as a name suffix (``"wint8-cint8"``;
+        ``""`` at the defaults)."""
+        parts = []
+        if self.serve_weight_dtype != "bf16":
+            parts.append(f"w{self.serve_weight_dtype}")
+        if self.cache_dtype != "bf16":
+            parts.append(f"c{self.cache_dtype}")
+        return "-".join(parts)
+
 
 def batch_axes(mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
