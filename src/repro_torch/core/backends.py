@@ -13,8 +13,9 @@ of ``repro.core.backends``).
 
 Built-ins registered at import:
 
-``tiled``        one ``F.conv2d`` / matmul per layer over the decoded
-                 tile stack (any stride, float32 datapath, TF32 off)
+``tiled``        one ``F.conv2d`` / matmul per output-channel group of
+                 each layer's decoded tile stack (any stride, float32
+                 datapath, TF32 off)
 ``smm``          NumPy faithful MPE/APE execution on the host (integer
                  activations)
 ``smm_kernel``   the hand-written CUDA MPE/APE kernel
@@ -23,8 +24,9 @@ Built-ins registered at import:
 ``codr_matmul``  the hand-written CUDA fused decode+matmul kernel
                  (:mod:`repro_torch.kernels.codr_matmul`): linear layers,
                  and every packed projection of the transformer lane
-``sharded``      the tiled datapath partitioned over the output-tile
-                 axis of a device mesh (:class:`ShardedBackend`)
+``sharded``      the tiled datapath's groups partitioned over the
+                 output-tile axis of a device mesh (:class:`ShardedBackend`),
+                 bit for bit ``tiled``
 
 The transformer lane enters through :meth:`Backend.matmul` /
 :meth:`Backend.gather` / :meth:`Backend.unembed`, which
@@ -258,14 +260,17 @@ def resolve(backend: str | Backend) -> Backend:
 # names, which is what lets the two packages be compared name for name.
 
 class TiledBackend(Backend):  # codrlint: disable=capability-consistency — 'tiled' keys the port's own registry, separate from repro.core.backends'
-    """Each layer's decoded tile stack as one ``F.conv2d`` / matmul, float32
-    with TF32 off (the counterpart of the reference's fused ``lax.conv``)."""
+    """Each layer's decoded tile stack as one ``F.conv2d`` / matmul per
+    output-channel group (:func:`repro_torch.core.engine.channel_groups`:
+    4 groups of whole tiles, or one tile each where a layer has fewer),
+    float32 with TF32 off, concatenated over the channel axis (the
+    counterpart of the reference's fused ``lax.conv``)."""
 
     name = "tiled"
     caps = BackendCaps(packed_matmul=True,
-                       description="one F.conv2d/matmul per layer over the "
-                                   "decoded tile stack, any stride, float32 "
-                                   "datapath (TF32 off)")
+                       description="one F.conv2d/matmul per output-channel "
+                                   "group of the decoded tile stack, any "
+                                   "stride, float32 datapath (TF32 off)")
 
     def conv(self, layer, x):
         return layer(x)
@@ -398,22 +403,21 @@ class ShardedBackend(Backend):  # codrlint: disable=capability-consistency — '
     stationary) while the input is broadcast to all tiles (paper
     §III-B).
 
-    * The tile stack ``(n_tiles, t_m, N, RK, CK)`` is zero-padded to a
-      multiple of the device count and placed once, slice i on device i
-      (:func:`repro_torch.sharding.rules.shard_leading`).
-    * Each shard runs ONE ``F.conv2d`` / matmul over its slice with the
-      batch on its device, float32 with TF32 off as in ``tiled``; the
-      outputs are gathered to the first device in shard order and
-      concatenated over the channel axis, with no collective between
-      the shards.
+    * The layer's output-channel groups (``layer.groups_device``: a
+      fixed run of whole tiles each, set by the layer's shape alone) are
+      zero-padded to a multiple of the device count and placed once, a
+      contiguous run of groups on each device; where a device is the
+      layer's own, the layer's group tensors themselves are used.
+    * Each group runs the same ``F.conv2d`` / matmul as in ``tiled`` (the
+      same weight shape and kind of tensor, the same NHWC input, float32
+      with TF32 off) on its device; the outputs are gathered to the
+      first device in group order and concatenated over the channel
+      axis, with no collective between the devices.
     * Pad channels are cropped and the scale / bias / activation
-      epilogue runs on the gathered output.  Per-output-channel
-      reductions do not depend on the channel split, so the result is
-      ``tiled``'s wherever the convolution library computes a channel
-      the same way in a narrower call: bit for bit on the CPU and at
-      D = 1 on the H100; at D = 2 and 4 cuDNN picks other algorithms
-      for the narrower calls, ~2e-6 of the output's range away
-      (ROADMAP §C).
+      epilogue runs on the gathered output.  Every output channel thus
+      comes from the same call with the same arguments as in ``tiled``,
+      so the result is ``tiled``'s bit for bit at every mesh size,
+      whichever algorithm the library picks for a call.
 
     Per-layer shard state is cached on the layer, keyed on the mesh, and
     so is the whole-chain state in :meth:`run_model`; a new mesh
@@ -471,18 +475,21 @@ class ShardedBackend(Backend):  # codrlint: disable=capability-consistency — '
 
     # -- per-layer preparation ---------------------------------------------
     def _prepare(self, layer, mesh: tuple) -> dict:
-        """Shard ``layer``'s decoded tiles over ``mesh`` (once per layer
-        per mesh), cached on the layer: repeat dispatches reuse the
-        placed shards."""
+        """Place ``layer``'s output-channel groups over ``mesh`` (once per
+        layer per mesh), cached on the layer: repeat dispatches reuse the
+        placed groups.  ``state["weights"][i]`` is device i's run of
+        groups."""
         state = getattr(layer, "_shard_state", None)
         if state is not None and state["mesh"] == mesh:
             return state
         from repro_torch.sharding import rules
-        t = layer.tiles.astype(np.float32)     # (n_tiles, t_m, N[, RK, CK])
-        if layer.kind == "linear":
-            t = t.reshape(t.shape[0], t.shape[1], -1)
-        weights = [s.reshape(s.shape[0] * s.shape[1], *s.shape[2:])
-                   for s in rules.shard_leading(t, mesh)]
+        groups = list(layer.groups_device)
+        n = rules.pad_to_multiple(len(groups), len(mesh))
+        groups += [torch.zeros_like(groups[0])] * (n - len(groups))
+        per = n // len(mesh)
+        # .to() returns the layer's own tensor where the device is its own
+        weights = [[g.to(dev) for g in groups[i * per:(i + 1) * per]]
+                   for i, dev in enumerate(mesh)]
         bias = (None if layer.bias is None
                 else torch.from_numpy(layer.bias).to(mesh[0]))
         state = {"mesh": mesh, "weights": weights, "bias": bias}
@@ -492,9 +499,11 @@ class ShardedBackend(Backend):  # codrlint: disable=capability-consistency — '
     # -- execution ----------------------------------------------------------
     def conv(self, layer, x):
         state = self._prepare(layer, self.mesh_for(layer.device))
-        local = layer._conv if layer.kind == "conv" else layer._matmul
-        ys = [local(x.to(w.device), w).to(state["mesh"][0])
-              for w in state["weights"]]
+        first = state["mesh"][0]
+        ys = []
+        for dev, ws in zip(state["mesh"], state["weights"]):
+            xd = x.to(dev)
+            ys += [layer._local(xd, w).to(first) for w in ws]
         y = torch.cat(ys, dim=-1)[..., : layer.code.shape[0]] * layer.scale
         if state["bias"] is not None:
             y = y + state["bias"]

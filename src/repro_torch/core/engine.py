@@ -10,7 +10,9 @@
 * **Decode on first dispatch** — the first forward pass decodes the
   layer's RLE bitstreams in one vectorized pass
   (:func:`repro_torch.core.rle.decode_layer`) and keeps the int8 tile
-  stack, as float32 on the layer's device, for every later request.
+  stack, cut into the layer's output-channel groups
+  (:func:`channel_groups`) as float32 on the layer's device, for every
+  later request.
 * :class:`CodrModel` — chains layers over NHWC batches, flattening at
   the conv→linear boundary, with dense float32 oracles and per-layer
   SRAM access estimates.
@@ -20,6 +22,13 @@ Execution goes through the backend registry
 float32 convolutions and matmuls here run with TF32 off
 (:func:`full_fp32`), so ``tiled`` and the oracles keep float32 accuracy
 on the card as on the CPU.
+
+The float lanes (``tiled``, and ``sharded`` at any mesh size) compute a
+layer as one ``F.conv2d`` / matmul per output-channel group, each group
+a fixed run of whole tiles that depends on the layer's shape alone.  A
+shard is a union of groups, so every output channel comes from the same
+call with the same arguments in every lane, and the lanes agree bit for
+bit whichever algorithm cuDNN or cuBLAS picks for a call.
 """
 from __future__ import annotations
 
@@ -36,10 +45,17 @@ from repro_torch.core import dataflow, rle, ucr
 from repro_torch.core.dataflow import CODR_TILING, ConvShape
 
 __all__ = [
-    "CodrConv2D", "CodrLinear", "CodrModel", "LayerStats",
-    "build_random_model", "decode_all_tiles", "decode_tile", "full_fp32",
-    "paper_model_shapes", "resolve_device",
+    "CHANNEL_GROUPS", "CodrConv2D", "CodrLinear", "CodrModel", "LayerStats",
+    "build_random_model", "channel_groups", "decode_all_tiles",
+    "decode_tile", "full_fp32", "paper_model_shapes", "resolve_device",
 ]
+
+# output-channel groups a layer is computed in (fewer where it has fewer
+# tiles): 4 splits evenly over meshes of 1, 2 and 4 devices, and on the
+# H100 VGG16 ran fastest at 4 of the counts 1, 4, 8 and 16, with none of
+# the FFT kernels cuDNN picks for a full-width conv2 call
+# (sharded_probe.py)
+CHANNEL_GROUPS = 4
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,6 +67,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the port's plain CPU path")
     return dev
+
+
+def channel_groups(n_tiles: int) -> tuple[int, int]:
+    """``(groups, tiles per group)`` of a layer with ``n_tiles`` output
+    tiles: :data:`CHANNEL_GROUPS` groups, or one tile each where the layer
+    has fewer tiles.  Zero tiles pad the stack to ``groups · tiles per
+    group``.  A function of the layer alone, never of a mesh."""
+    groups = min(CHANNEL_GROUPS, n_tiles)
+    return groups, -(-n_tiles // groups)
 
 
 @contextlib.contextmanager
@@ -171,6 +196,7 @@ class _CodrLayer:
         self._w_ref = w_ref                  # oracle only — never executed
         self._tiles: np.ndarray | None = None
         self._tiles_dev: torch.Tensor | None = None
+        self._groups_dev: tuple[torch.Tensor, ...] | None = None
         self._bias_dev: torch.Tensor | None = None
 
     @property
@@ -188,6 +214,39 @@ class _CodrLayer:
             self._tiles_dev = torch.from_numpy(
                 self.tiles.astype(np.float32)).to(self.device)
         return self._tiles_dev
+
+    @property
+    def groups_device(self) -> tuple[torch.Tensor, ...]:
+        """The tile stack cut into the layer's output-channel groups
+        (:func:`channel_groups`), each its own contiguous float32 weight
+        on the layer's device: ``(tiles per group · t_m, N, RK, CK)`` for
+        conv, ``(tiles per group · t_m, N)`` for linear; pad tiles are
+        zero (cached).  Every float lane runs one call per group."""
+        if self._groups_dev is None:
+            t = self.tiles
+            n_groups, per = channel_groups(t.shape[0])
+            pad = n_groups * per - t.shape[0]
+            if pad:
+                t = np.concatenate([t, np.zeros((pad, *t.shape[1:]),
+                                                t.dtype)])
+            tail = t.shape[2:] if self.kind == "conv" else t.shape[2:3]
+            w = t.astype(np.float32).reshape(n_groups, per * t.shape[1],
+                                             *tail)
+            self._groups_dev = tuple(torch.from_numpy(g).to(self.device)
+                                     for g in w)
+        return self._groups_dev
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Tiled forward: one float32 call of the layer's kind
+        (``_local``: conv NHWC ``(B, RI, CI, N)`` → ``(B, RO, CO, M)``,
+        linear ``(B, N)`` → ``(B, M)``) per output-channel group
+        (:attr:`groups_device`), all on the same input, concatenated over
+        the channel axis and cropped to the layer's channels, then scale,
+        bias, activation."""
+        y = torch.cat([self._local(x, w) for w in self.groups_device],
+                      dim=-1)
+        return _backends._finish(self, y[..., : self.code.shape[0]]
+                                 * self.scale)
 
     @property
     def bias_device(self) -> torch.Tensor:
@@ -285,13 +344,7 @@ class CodrConv2D(_CodrLayer):
             y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride)
         return y.permute(0, 2, 3, 1)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """Tiled forward: NHWC ``(B, RI, CI, N)`` float32 → ``(B, RO, CO,
-        M)``, one ``F.conv2d`` over the decoded tile stack (every tile's
-        output-channel slice is still produced exactly once)."""
-        t = self.tiles_device
-        w = t.reshape(-1, *t.shape[2:])[: self.code.shape[0]]
-        return _backends._finish(self, self._conv(x, w) * self.scale)
+    _local = _conv
 
     def reference(self, x: torch.Tensor) -> torch.Tensor:
         """Dense float32 oracle on the ORIGINAL float weights."""
@@ -368,12 +421,7 @@ class CodrLinear(_CodrLayer):
         with full_fp32():
             return x @ w.T
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``: ``(B, N)`` float32 → ``(B, M)``, one matmul over the
-        decoded tile stack."""
-        t = self.tiles_device
-        w = t.reshape(t.shape[0] * t.shape[1], -1)[: self.code.shape[0]]
-        return _backends._finish(self, self._matmul(x, w) * self.scale)
+    _local = _matmul
 
     def reference(self, x: torch.Tensor) -> torch.Tensor:
         return _backends._finish(self,

@@ -1,6 +1,6 @@
 """The port stands alone: importing it pulls in neither JAX nor the
-reference package, ``chip_smoke.py`` imports neither, and the entry
-points run on the card unless told otherwise."""
+reference package, ``chip_smoke.py`` and ``sharded_probe.py`` import
+neither, and the entry points run on the card unless told otherwise."""
 import ast
 import json
 import os
@@ -84,7 +84,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert not bad, f"the port pulled in {bad}"
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", *[
+@pytest.mark.parametrize("path", ["chip_smoke.py", "sharded_probe.py", *[
     str(p.relative_to(ROOT)) for p in sorted(PORT.rglob("*.py"))]])
 def test_sources_import_neither_jax_nor_the_reference(path):
     tree = ast.parse((ROOT / path).read_text())

@@ -10,6 +10,12 @@ tests of ``tests/test_resilience.py``, and held against ``repro``.
   devices with ``XLA_FLAGS``).  Inside the port the sharded lane equals
   ``tiled`` bit for bit at every D, the ragged last tile (m0 = 10,
   t_m = 4), strides 1 and 2 and a linear-only model included.
+* The contract behind those bits, call by call: in ``tiled`` and in
+  ``sharded`` at D = 1, 2, 3, 4 and 8, each real output channel comes
+  from a call with the same input shape and strides, weight shape,
+  stride and row (the layer's output-channel groups), so the lanes agree
+  whatever algorithm the library picks.  On the card a conv3_1-shaped
+  layer is held bit for bit at D = 1, 2 and 4 (``-m cuda``).
 * Against JAX: the port's D = 1 lane is within rtol 1e-4 / atol 1e-4 of
   the reference's ``sharded`` lane (the tolerance of
   ``tests/test_torch_api.py`` for ``tiled``); straggler actions, ratios
@@ -21,25 +27,26 @@ tests of ``tests/test_resilience.py``, and held against ``repro``.
   exact integer arithmetic before the scale, and a degraded lane gives
   the clean run's bits.
 
-Every wait and the child process carry their own timeout.
+Every wait and the child process carry their own timeout.  The
+reference package is imported inside the tests, so the ``cuda`` test also
+runs where JAX is absent:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_sharded.py
 """
 import json
 import os
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-import repro.api as jcodr
 import repro_torch.api as tcodr
-from repro.runtime import elastic as jelastic
-from repro.runtime import straggler as jstraggler
-from repro.sharding import rules as jrules
 from repro_torch.core import backends
 from repro_torch.core.backends import ShardedBackend
+from repro_torch.core.engine import (CHANNEL_GROUPS, CodrConv2D, CodrLinear,
+                                     channel_groups)
 from repro_torch.runtime import resilience as res
 from repro_torch.runtime.elastic import (ElasticMeshManager, HostSet,
                                          feasible_grid)
@@ -92,6 +99,7 @@ def _lane(d: int) -> ShardedBackend:
 # ---------------------------------------------------------------------------
 
 def test_pad_to_multiple_matches_reference():
+    from repro.sharding import rules as jrules
     for n, k in [(0, 4), (1, 4), (4, 4), (5, 4), (7, 1), (9, 3)]:
         assert rules.pad_to_multiple(n, k) == jrules.pad_to_multiple(n, k)
     assert rules.pad_to_multiple(0, 4) == 4     # floor: at least one block
@@ -99,6 +107,7 @@ def test_pad_to_multiple_matches_reference():
 
 
 def test_tile_mesh_default_and_repeats():
+    from repro.sharding import rules as jrules
     assert rules.ENGINE_TILE_AXIS == jrules.ENGINE_TILE_AXIS == "tile"
     assert rules.tile_mesh(device="cpu") == (CPU,)
     assert rules.tile_mesh(["cpu"] * 3) == (CPU,) * 3
@@ -160,7 +169,10 @@ def test_sharded_single_layer_steps_match_layer_forward(stride, d, rng):
     x = torch.from_numpy(rng.normal(size=(2, 11, 11, 3)).astype(np.float32))
     np.testing.assert_array_equal(_np(_lane(d).conv(layer, x)),
                                   _np(layer(x)))
-    assert len(layer._shard_state["weights"]) == d
+    # one run of whole groups a device: 3 tiles → 3 groups, padded to D
+    weights = layer._shard_state["weights"]
+    assert len(weights) == d
+    assert sum(map(len, weights)) == rules.pad_to_multiple(3, d)
 
 
 @pytest.mark.parametrize("d", DS)
@@ -205,9 +217,15 @@ def test_new_mesh_reshards(rng):
     compiled.run(x, backend=_lane(2))
     assert layer._shard_state["mesh"] == (CPU,) * 2
     assert compiled.model._run_sharded == (CPU,) * 2
-    # a shard of the ragged stack: 3 tiles of t_m = 4, padded to 4
-    assert [tuple(w.shape[:1]) for w in layer._shard_state["weights"]] == \
-        [(8,), (8,)]
+    # the ragged stack's 3 tiles of t_m = 4 are 3 one-tile groups, padded
+    # to 4: two groups of 4 channels a device, the first three the
+    # layer's own group tensors
+    weights = layer._shard_state["weights"]
+    assert [[tuple(w.shape[:1]) for w in ws] for ws in weights] == \
+        [[(4,), (4,)], [(4,), (4,)]]
+    assert all(a is b for a, b in zip(weights[0] + weights[1],
+                                      layer.groups_device))
+    assert not weights[1][1].any()               # the zero pad group
 
 
 def test_sharded_dispatch_site_fires(rng):
@@ -226,6 +244,7 @@ def test_sharded_dispatch_site_fires(rng):
 
 
 def test_sharded_d1_matches_reference_sharded(rng):
+    import repro.api as jcodr
     layers = _conv_linear_layers(rng)
     jc = jcodr.compile(jcodr.ModelSpec(layers(jcodr)),
                        jcodr.EncodeConfig(n_unique=16), backend="sharded")
@@ -237,12 +256,129 @@ def test_sharded_d1_matches_reference_sharded(rng):
 
 
 # ---------------------------------------------------------------------------
+# the contract: every output channel from the same call in every lane
+# ---------------------------------------------------------------------------
+
+def _channel_calls(layer, lane, x) -> list:
+    """Run ``layer`` on ``x`` through ``lane`` with the layer's float call
+    (``_local``) recorded.  Each recorded call returns, in every output
+    channel, a code naming the call and the channel's row in that call's
+    weight, which the lane's gather, crop and scale carry through to the
+    output (the layer has no bias and no activation).  Returns, for each
+    real output channel, the call's input shape and strides, its weight
+    shape, the stride, the row, and that row of the weight."""
+    calls = []
+    real = layer._local
+
+    def record(xc, w):
+        y = real(xc, w)
+        calls.append((tuple(xc.shape), xc.stride(), tuple(w.shape),
+                      getattr(layer, "stride", 1), w))
+        code = len(calls) * 1024 + torch.arange(w.shape[0],
+                                                dtype=torch.float32)
+        return torch.zeros_like(y) + code
+
+    layer._local = record
+    try:
+        y = lane.step(layer, x)
+    finally:
+        del layer._local
+    codes = torch.round(y / layer.scale).reshape(-1, y.shape[-1])
+    assert (codes == codes[0]).all()            # one call a channel
+    out = []
+    for code in codes[0].to(torch.int64).tolist():
+        k, row = divmod(code, 1024)
+        x_shape, x_stride, w_shape, stride, w = calls[k - 1]
+        out.append(((x_shape, x_stride, w_shape, stride, row), w[row]))
+    return out
+
+
+def _contract_layer(case, rng):
+    """(layer, input) for one case of the contract test."""
+    if case == "linear":                        # 10 tiles, ragged last
+        return (CodrLinear(_sparse(rng, (38, 33)), t_m=4, n_unique=16,
+                           device="cpu"),
+                torch.from_numpy(rng.normal(size=(4, 33)).astype(np.float32)))
+    m, stride = {"ragged": (10, 1),             # 3 tiles, ragged last
+                 "ragged_many": (38, 1),        # 10 tiles: 4 groups of 3
+                 "stride2": (36, 2),            # 9 tiles
+                 "fewer_tiles": (8, 1)}[case]   # 2 tiles: 2 groups
+    layer = CodrConv2D(_sparse(rng, (m, 3, 3, 3)), t_m=4, stride=stride,
+                       n_unique=16, device="cpu")
+    x = rng.normal(size=(2, 11, 11, 3)).astype(np.float32)
+    return layer, torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("case", ["ragged", "ragged_many", "stride2",
+                                  "fewer_tiles", "linear"])
+def test_every_channel_comes_from_the_same_call(case, d, rng):
+    """``tiled`` and ``sharded`` over ``(cpu,) * d`` compute each real
+    output channel in a call with the same input shape and strides, the
+    same weight shape and stride, at the same row of an equal weight: the
+    layer's fixed output-channel groups, whatever the mesh size."""
+    layer, x = _contract_layer(case, rng)
+    n_tiles = layer.tiles.shape[0]
+    groups, per = channel_groups(n_tiles)
+    assert groups == min(CHANNEL_GROUPS, n_tiles)
+    assert groups * per >= n_tiles > groups * (per - 1)
+    assert len(layer.groups_device) == groups
+    want = _channel_calls(layer, backends.get_backend("tiled"), x)
+    got = _channel_calls(layer, _lane(d), x)
+    assert len(want) == len(got) == layer.code.shape[0]
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        assert torch.equal(a, b)
+    # the rows are the layer's decoded weights, channel for channel
+    dense = torch.stack([w for _, w in want]).reshape(
+        layer.code.shape[0], -1)
+    np.testing.assert_array_equal(
+        _np(dense), layer.decoded_weights().reshape(dense.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("benchmark", [False, True])
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_cuda_conv3_1_sharded_equals_tiled_bit_for_bit(d, benchmark):
+    """A VGG16 conv3_1-shaped layer (128 → 256 channels, 3×3) on a 214×214
+    input: ``sharded`` over ``cuda:0`` repeated d times equals ``tiled``
+    bit for bit, and ``tiled`` stays within 1e-4 of the dequantized
+    oracle's range.  With ``benchmark`` the sharded lane runs first with
+    cuDNN's autotuner on and ``tiled`` after it with it off, at a batch
+    no earlier call used: the lanes' bits do not hang on that switch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (cuDNN picks its algorithms on "
+                    "the card)")
+    rng = np.random.default_rng(0)
+    layer = CodrConv2D(_sparse(rng, (256, 128, 3, 3), 0.4), t_m=4,
+                       n_unique=16, activation="relu", device="cuda")
+    batch = 4 + d if benchmark else 4
+    x = torch.from_numpy(rng.normal(size=(batch, 214, 214, 128))
+                         .astype(np.float32)).cuda()
+    lane = ShardedBackend(rules.tile_mesh(["cuda:0"] * d))
+    saved = torch.backends.cudnn.benchmark
+    try:
+        torch.backends.cudnn.benchmark = benchmark
+        y_sh = lane.conv(layer, x)
+        torch.backends.cudnn.benchmark = False
+        y_ti = layer(x)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    assert tuple(y_sh.shape) == (batch, 212, 212, 256)
+    assert torch.equal(y_sh, y_ti)
+    y_q = layer.quantized_reference(x)
+    assert float((y_ti - y_q).abs().max()) <= 1e-4 * float(y_q.abs().max())
+
+
+# ---------------------------------------------------------------------------
 # straggler monitor and elastic grid, against the reference
 # ---------------------------------------------------------------------------
 
 def _same_series(n_hosts, cfg_kw, series):
     """Feed ``series`` to both monitors; every observation's median,
     ratios and actions equal.  Returns the port's last result."""
+    from repro.runtime import straggler as jstraggler
     mon = StragglerMonitor(n_hosts, StragglerConfig(**cfg_kw)
                            if cfg_kw is not None else None)
     jmon = jstraggler.StragglerMonitor(
@@ -296,6 +432,8 @@ def test_straggler_zero_median_fleet_no_spurious_flags():
     (256, 16, 256), (252, 16, 256), (12, 2, 16), (3, 1, 4), (7, 1, 7),
     (1, 2, 4), (3, 8, 64), (0, 1, 4), (4, 0, 4)])
 def test_feasible_grid_matches_reference(chips, mp, batch):
+    from repro.runtime import elastic as jelastic
+
     def call(fn):
         try:
             return fn(chips, model_parallel=mp, global_batch=batch)
@@ -308,6 +446,8 @@ def test_feasible_grid_matches_reference(chips, mp, batch):
 
 
 def test_elastic_manager_failure_and_recovery():
+    from repro.runtime import elastic as jelastic
+
     def fleet(mod):
         return mod.ElasticMeshManager(
             mod.HostSet(n_hosts=4, chips_per_host=4,
