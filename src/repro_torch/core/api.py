@@ -37,6 +37,7 @@ import torch
 from repro_torch.core import backends as _backends
 from repro_torch.core import engine as _engine
 from repro_torch.core.engine import resolve_device
+from repro_torch.core.spans import span
 
 __all__ = [
     "LayerSpec", "ModelSpec", "EncodeConfig", "CompiledModel", "compile",
@@ -402,7 +403,8 @@ class CompiledModel:
             ok, reason = be.supports_model(self.model.layers)
             if not ok:
                 raise ValueError(reason)
-        return be.run_model(self.model, batch)
+        with span("codr.run", backend=be.name, batch=len(batch)):
+            return be.run_model(self.model, batch)
 
     __call__ = run
 

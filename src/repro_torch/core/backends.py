@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import smm
+from repro_torch.core.spans import span
 
 __all__ = [
     "Backend", "BackendCaps", "available_backends", "get_backend",
@@ -107,14 +108,20 @@ def _int_activations(x: torch.Tensor) -> tuple[torch.Tensor, float]:
     The numbers are ``repro.core.backends._int_activations``': scale =
     float32(amax / 127), round half to even, clip to ±127.  Returns the
     integer-valued float32 tensor and the scale; only two scalars reach
-    the host."""
-    x = x.to(torch.float32)
-    amax = x.abs().max()
-    if bool((x == torch.round(x)).all() & (amax <= 127)):
-        return x, 1.0
-    scale = torch.where(amax > 0, amax / 127.0, 1.0)
-    q = torch.clamp(torch.round(x / scale), -127, 127)
-    return q, float(scale)
+    the host (the ``codr.host_read`` spans)."""
+    with span("codr.features"):
+        x = x.to(torch.float32)
+        amax = x.abs().max()
+        exact = (x == torch.round(x)).all() & (amax <= 127)
+        with span("codr.host_read", what="integer_test"):
+            exact = bool(exact)
+        if exact:
+            return x, 1.0
+        scale = torch.where(amax > 0, amax / 127.0, 1.0)
+        q = torch.clamp(torch.round(x / scale), -127, 127)
+        with span("codr.host_read", what="scale"):
+            scale = float(scale)
+        return q, scale
 
 
 class Backend(abc.ABC):

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.core import backends as _backends
 from repro_torch.core import dataflow, rle, ucr
 from repro_torch.core.dataflow import CODR_TILING, ConvShape
+from repro_torch.core.spans import span
 
 __all__ = [
     "CHANNEL_GROUPS", "CodrConv2D", "CodrLinear", "CodrModel", "LayerStats",
@@ -458,10 +459,12 @@ class CodrModel:
         return torch.as_tensor(batch, dtype=torch.float32, device=self.device)
 
     def _chain(self, x: torch.Tensor, step) -> torch.Tensor:
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             if layer.kind == "linear" and x.dim() > 2:
                 x = x.reshape(x.shape[0], -1)
-            x = step(layer, x)
+            with span("codr.layer", name=layer.name, index=i,
+                      kind=layer.kind):
+                x = step(layer, x)
         return x
 
     def __call__(self, batch, *,
