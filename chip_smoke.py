@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from the sources in this checkout
 convolution; ``codr_matmul.cu``, ``codr_matmul_splitk.cu`` and
 ``codr_matmul_sm90.cu``, the three of the compressed matmul;
 ``flash_attention.cu`` and ``flash_attention_sm90.cu``, the two of flash
-attention: one ``nvcc`` per source, all seven started together) and
+attention; ``int8_features.cu``, the CNN lane's feature path and
+epilogue: one ``nvcc`` per source, all eight started together) and
 drives the port's three paths, each through the entry points a user
 calls:
 
@@ -46,6 +47,15 @@ calls:
   is held to one bf16 ulp of the plain version, and two controls that
   round P to bf16 (SDPA, and the plain version so changed) must fail
   that bound.  At the long prompts both instances are timed.
+
+On the CNN path each layer's feature path and epilogue run as the
+``int8_features`` kernels (stats, quantize, epilogue: their launches per
+request held beside ``smm_conv``'s, and each layer's features and
+epilogue held to their plain versions in the layer-by-layer replay);
+``features_phase`` then holds each of them to its plain version at
+``vgg16.b64``'s shapes (batch 64: conv1, and the block-first inputs of
+``quantize_nhwc``) and times it there against its bytes' bound and
+against the host path it replaced.
 
 Right after the CNN path, ``oracle_phase`` holds the codec's scalar
 oracle on that VGG16 model: ``rle.decode_vector`` (one bit-reader field
@@ -190,6 +200,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -530,9 +541,10 @@ def cnn_path(args) -> dict:
     import repro_torch.api as codr
     from repro_torch.configs.paper_cnns import ALEXNET, GOOGLENET, VGG16
     from repro_torch.core import ucr
-    from repro_torch.core.backends import _int_activations
     from repro_torch.core.engine import full_fp32
-    from repro_torch.kernels.smm_conv import ops, ref
+    from repro_torch.kernels.int8_features import ops as feat_ops
+    from repro_torch.kernels.int8_features import ref as feat_ref
+    from repro_torch.kernels.smm_conv import ops, ref, smm_conv_batched
 
     shapes = VGG16[:7]              # conv1_1 .. conv3_3, 226x226x3 input
     batch, n_requests = 4, 3
@@ -555,18 +567,35 @@ def cnn_path(args) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.launches = 0
     ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
-    outs, req_ms, per_request = [], [], []
+    feat_ops.launches = 0
+    feat_ops.launches_by_impl.update(dict.fromkeys(feat_ops.IMPLS, 0))
+    outs, req_ms, per_request, feat_per_request = [], [], [], []
     for x in images:
         before = dict(ops.launches_by_impl)
+        feat_before = dict(feat_ops.launches_by_impl)
         t0 = time.perf_counter()
         y = compiled.run(x)
         torch.cuda.synchronize()
         req_ms.append((time.perf_counter() - t0) * 1e3)
         per_request.append({i: ops.launches_by_impl[i] - before[i]
                             for i in ops.IMPLS})
+        feat_per_request.append({i: feat_ops.launches_by_impl[i]
+                                 - feat_before[i] for i in feat_ops.IMPLS})
         outs.append(y)
     launches = ops.launches
     by_impl = dict(ops.launches_by_impl)
+    # the feature path: stats, quantize and epilogue a layer; the first
+    # layer's input is NHWC-contiguous (the transpose), the rest NCHW
+    # storage behind the NHWC view
+    n_layers = len(spec)
+    feat_want = {"stats": n_layers, "quantize": n_layers - 1,
+                 "quantize_nhwc": 1, "epilogue": n_layers}
+    say(f"cnn int8_features launches per request {feat_per_request} "
+        f"beside smm_conv's {per_request}; in all {feat_ops.launches} "
+        f"{dict(feat_ops.launches_by_impl)}")
+    if any(r != feat_want for r in feat_per_request):
+        fail(f"int8_features launches {feat_per_request} per request, "
+             f"expected {feat_want}")
     peak = torch.cuda.max_memory_allocated()
     for i, ms in enumerate(req_ms):
         say(f"cnn request {i}: batch {batch}, {ms:.3f} ms"
@@ -663,11 +692,29 @@ def cnn_path(args) -> dict:
     x = compiled.model.as_input(images[0])
     ri = ci = 226
     for layer in compiled.model.layers:
-        xi, _ = _int_activations(x)
-        row, ro, co = layer_row("main", layer,
-                                xi.permute(0, 3, 1, 2).contiguous(), ri, ci)
+        # each layer's int8 features and epilogue against their plain
+        # versions, on the input the main path hands the layer (conv0's
+        # NHWC-contiguous pixels, then NCHW storage behind the NHWC view)
+        xi, s = feat_ops.int8_features(x)
+        xp, sp = feat_ref.int8_features_plain(x)
+        if not (torch.equal(xi, xp) and torch.equal(s, sp)):
+            fail(f"cnn {layer.name}: int8_features differ from the plain "
+                 f"version")
+        row, ro, co = layer_row("main", layer, xi, ri, ci)
         rows.append(row)
+        y = smm_conv_batched(xi, layer.code, stride=layer.stride,
+                             operands=layer.smm_operands())
+        bias = None if layer.bias is None else layer.bias_device
+        relu = layer.activation == "relu"
+        yf = feat_ops.epilogue(y, s, layer.scale, bias, relu=relu)
+        if not torch.equal(yf, feat_ref.epilogue_plain(y, s, layer.scale,
+                                                       bias, relu)):
+            fail(f"cnn {layer.name}: int8_features epilogue differs from "
+                 f"the plain version")
         x = compiled.backend.conv(layer, x)
+        if not torch.equal(x, yf):
+            fail(f"cnn {layer.name}: the layer's kernels, run one by one, "
+                 f"differ from the main path's layer")
         ri, ci = ro, co
     if not torch.equal(x, outs[0]):
         fail("layer-by-layer replay of request 0 differs from the main path")
@@ -733,7 +780,9 @@ def cnn_path(args) -> dict:
         f"{sums['library_tf32_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return compiled, dict(SMM_KERNEL, launches=launches,
                           launches_by_impl=by_impl,
-                launches_per_request=per_request, max_abs_err=max_err,
+                launches_per_request=per_request,
+                int8_features_launches_per_request=feat_per_request,
+                max_abs_err=max_err,
                 **sums, bound_ms=b_ms, bound_by=b_by,
                 per_request="sums over the 7 main-path launches of one "
                             "request (batch 4): ms on the routed instance, "
@@ -744,6 +793,102 @@ def cnn_path(args) -> dict:
                 per_shape=rows, published=published,
                 main_path={"request_ms": req_ms, "encode_s": encode_s,
                            "peak_memory_bytes": peak, "profile": profile})
+
+
+def features_phase(args, batch: int = 64, hw: int = 226,
+                   c: int = 64) -> dict:
+    """The ``int8_features`` kernels alone at ``vgg16.b64``'s shapes.  At
+    conv1: its batch-64 input (64 channels at 226², a ReLU output: NCHW
+    storage behind the NHWC view) and its output (64 channels at 224²).
+    Each kernel is held to its plain version bit for bit and timed by CUDA
+    events beside its bytes' bound (each input read once, each output
+    written once, at 3.35 TB/s) and the plain version; beside them the
+    host path the card's chain replaced (``_int_activations``, the NCHW
+    copy, ``_finish`` of the scaled output), its two reads included.
+    ``quantize_nhwc`` (with ``stats``) on the block-first inputs it takes
+    in ``vgg16.b64``, NHWC-contiguous: conv0's pixels (3 channels at
+    228²), conv2's and conv4's ReLU outputs (64 at 116², 128 at 62²)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import _finish, _int_activations
+    from repro_torch.kernels.int8_features import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 5)
+
+    def relu_out(hw, c):
+        return torch.relu(torch.randn(batch, c, hw, hw, device="cuda",
+                                      generator=g) * 40).permute(0, 2, 3, 1)
+    x = relu_out(hw, c)
+    y = torch.randint(-30000, 30000, (batch, c, hw - 2, hw - 2),
+                      device="cuda", generator=g).float()
+    firsts = {
+        "conv0": torch.randint(0, 256, (batch, 228, 228, 3), device="cuda",
+                               generator=g).float(),
+        "conv2": relu_out(116, 64).contiguous(),
+        "conv4": relu_out(62, 128).contiguous(),
+    }
+    layer = types.SimpleNamespace(bias=None, activation="relu",
+                                  code=types.SimpleNamespace(
+                                      scale=np.float32(0.0123)))
+    scale = ops.feature_scale(x)
+    checks = {
+        "stats": (scale, ref.feature_scale_plain(x)),
+        "quantize": (ops.quantize(x, scale), ref.quantize_plain(x, scale)),
+        "epilogue": (ops.epilogue(y, scale, 0.0123, relu=True),
+                     ref.epilogue_plain(y, scale, 0.0123, None, True)),
+    }
+    for name, xf in firsts.items():
+        checks[f"stats.{name}"] = (ops.feature_scale(xf),
+                                   ref.feature_scale_plain(xf))
+        checks[f"quantize_nhwc.{name}"] = (
+            ops.quantize(xf, checks[f"stats.{name}"][0]),
+            ref.quantize_plain(xf, checks[f"stats.{name}"][1]))
+    for name, (got, want) in checks.items():
+        if not torch.equal(got, want):
+            fail(f"int8_features {name} differs from its plain version at "
+                 f"vgg16.b64's shape")
+    n_x, n_y = x.numel(), y.numel()
+    timed = [("stats", lambda: ops.feature_scale(x),
+              lambda: ref.feature_scale_plain(x), 4 * n_x),
+             ("quantize", lambda: ops.quantize(x, scale),
+              lambda: ref.quantize_plain(x, scale), 8 * n_x),
+             ("epilogue", lambda: ops.epilogue(y, scale, 0.0123, relu=True),
+              lambda: ref.epilogue_plain(y, scale, 0.0123, None, True),
+              8 * n_y)]
+    for name, xf in firsts.items():
+        sf = checks[f"stats.{name}"][0]
+        timed.append((f"quantize_nhwc.{name}",
+                      lambda xf=xf, sf=sf: ops.quantize(xf, sf),
+                      lambda xf=xf, sf=sf: ref.quantize_plain(xf, sf),
+                      8 * xf.numel()))
+    rows = {}
+    for name, fn, plain, n_bytes in timed:
+        ms = cuda_ms(fn, 10)
+        b_ms = n_bytes / HBM_BYTES_S * 1e3
+        rows[name] = {"ms": ms, "bound_ms": b_ms, "bytes": n_bytes,
+                      "roofline": b_ms / ms, "plain_ms": cuda_ms(plain, 3)}
+
+    def host_path():
+        xi, s = _int_activations(x)
+        return (xi.permute(0, 3, 1, 2).contiguous(),
+                _finish(layer, y.permute(0, 2, 3, 1) * (0.0123 * s)))
+    sums = {k: sum(rows[n][k] for n in ("stats", "quantize", "epilogue"))
+            for k in ("ms", "bound_ms", "plain_ms")}
+    out = {"shape": {"x": list(x.shape), "y": list(y.shape),
+                     **{k: list(v.shape) for k, v in firsts.items()}},
+           "rows": rows, "chain": sums,
+           "host_path_ms": cuda_ms(host_path, 3)}
+    for name, r in rows.items():
+        at = name.split(".")[1] if "." in name else "conv1"
+        say(f"int8_features {name.split('.')[0]} at {at} of vgg16.b64: "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bytes']} "
+            f"bytes, {100 * r['roofline']:.1f}%), plain "
+            f"{r['plain_ms']:.4f} ms [{SMI}]")
+    say(f"int8_features chain at conv1 (stats + quantize + epilogue) "
+        f"{sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms, plain "
+        f"{sums['plain_ms']:.4f} ms; the host path it replaced "
+        f"{out['host_path_ms']:.4f} ms (its two reads included)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3377,11 +3522,13 @@ def _zero_kernel_counts() -> list:
     """Every kernel's launch counters set to 0; returns the ops modules."""
     from repro_torch.kernels.codr_matmul import ops as mm_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.int8_features import ops as feat_ops
     from repro_torch.kernels.smm_conv import ops as smm_ops
-    for ops in (smm_ops, mm_ops, fa_ops):
+    mods = [smm_ops, mm_ops, fa_ops, feat_ops]
+    for ops in mods:
         ops.launches = 0
         ops.launches_by_impl.update(dict.fromkeys(ops.launches_by_impl, 0))
-    return [smm_ops, mm_ops, fa_ops]
+    return mods
 
 
 def _no_kernel_launched(label: str, mods) -> None:
@@ -4220,6 +4367,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.codr_matmul import ops as mm_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.int8_features import ops as feat_ops
     from repro_torch.kernels.smm_conv import ops as smm_ops
 
     # -- device ------------------------------------------------------------
@@ -4236,9 +4384,10 @@ def main() -> int:
     # -- build: one nvcc per source, started together ----------------------
     t0 = time.perf_counter()
     sources = [*smm_ops.SOURCES.values(), *mm_ops.SOURCES.values(),
-               *fa_ops.SOURCES.values()]
+               *fa_ops.SOURCES.values(), feat_ops.SOURCE]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        for fut in [*(pool.submit(smm_ops.load_kernel, i)
+        for fut in [pool.submit(feat_ops.load_kernel),
+                    *(pool.submit(smm_ops.load_kernel, i)
                       for i in smm_ops.IMPLS),
                     *(pool.submit(mm_ops.load_kernel, i)
                       for i in mm_ops.IMPLS),
@@ -4281,6 +4430,10 @@ def main() -> int:
     cnn_model, row = cnn_path(args)
     kernels = [row]
     say(f"cnn path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    row["int8_features"] = features_phase(args)
+    torch.cuda.empty_cache()
+    say(f"int8_features phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _add_phase(kernels[0], "oracle", oracle_phase(args, cnn_model))
     say(f"oracle phase: {time.perf_counter() - t0:.1f} s")

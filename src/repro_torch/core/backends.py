@@ -106,9 +106,10 @@ def _int_activations(x: torch.Tensor) -> tuple[torch.Tensor, float]:
     is symmetric int8-quantized (its scale folds into the output).
 
     The numbers are ``repro.core.backends._int_activations``': scale =
-    float32(amax / 127), round half to even, clip to ±127.  Returns the
-    integer-valued float32 tensor and the scale; only two scalars reach
-    the host (the ``codr.host_read`` spans)."""
+    float32(amax / 127) correctly rounded, round half to even, clip to
+    ±127.  Returns the integer-valued float32 tensor and the scale; only
+    two scalars reach the host (the ``codr.host_read`` spans).  The host
+    path: the ``smm`` backend, and ``smm_kernel`` on CPU tensors."""
     with span("codr.features"):
         x = x.to(torch.float32)
         amax = x.abs().max()
@@ -117,7 +118,10 @@ def _int_activations(x: torch.Tensor) -> tuple[torch.Tensor, float]:
             exact = bool(exact)
         if exact:
             return x, 1.0
-        scale = torch.where(amax > 0, amax / 127.0, 1.0)
+        # a divisor on the device: with a host scalar CUDA multiplies by
+        # its reciprocal, one unit in the last place off amax / 127
+        scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                            1.0)
         q = torch.clamp(torch.round(x / scale), -127, 127)
         with span("codr.host_read", what="scale"):
             scale = float(scale)
@@ -329,7 +333,21 @@ class SmmKernelBackend(Backend):  # codrlint: disable=capability-consistency —
         return self._caps
 
     def conv(self, layer, x):
+        """On a CUDA tensor: the feature path and the epilogue as the
+        ``int8_features`` kernels around ``smm_conv`` (the scale stays on
+        the device, nothing is read back); on a CPU tensor:
+        :func:`_int_activations` and :func:`_finish`."""
         from repro_torch.kernels.smm_conv import smm_conv_batched
+        if x.device.type == "cuda":
+            from repro_torch.kernels.int8_features import ops as feats
+            with span("codr.features"):
+                xi, x_scale = feats.int8_features(x.to(torch.float32))
+            y = smm_conv_batched(xi, layer.code, stride=layer.stride,
+                                 operands=layer.smm_operands())
+            return feats.epilogue(
+                y, x_scale, layer.scale,
+                None if layer.bias is None else layer.bias_device,
+                relu=layer.activation == "relu")
         xi, x_scale = _int_activations(x)
         scale = float(np.asarray(layer.code.scale)) * x_scale
         y = smm_conv_batched(xi.permute(0, 3, 1, 2).contiguous(), layer.code,

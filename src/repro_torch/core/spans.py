@@ -10,8 +10,10 @@ Spans make no profiler event of their own.
 
 The CNN request path carries four: ``codr.run`` (``CompiledModel.run``),
 ``codr.layer`` (each step of ``CodrModel._chain``), ``codr.features``
-(``backends._int_activations``) and ``codr.host_read`` (each of its two
-reads of a scalar to the host).  Read them after profiling::
+(the int8 feature path: the ``int8_features`` kernels' launches on the
+card, ``backends._int_activations`` on the host paths) and
+``codr.host_read`` (each of ``_int_activations``' two reads of a scalar
+to the host; the card's path reads none).  Read them after profiling::
 
     with torch.profiler.profile(...):
         model.run(x)

@@ -1,0 +1,422 @@
+"""The ``smm_kernel`` lane's 8-bit feature path and epilogue
+(``repro_torch.kernels.int8_features``): the plain versions against the
+JAX reference's ``_int_activations`` and the port's ``_finish``, the
+wrapper's checks and its CPU route and, on a card, the CUDA kernels bit
+for bit against the plain versions.
+
+The reference package is imported inside the tests, so the ``cuda``
+tests also run where JAX is absent:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_int8_features.py
+"""
+import os
+import pathlib
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.api as codr
+from repro_torch.core import backends, spans
+from repro_torch.kernels.int8_features import ops, ref
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(kind: str, shape, seed: int = 0) -> np.ndarray:
+    """NHWC float32 test features of one kind."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return (rng.normal(size=shape) * 3).astype(np.float32)
+    if kind == "whole_int8":
+        return rng.integers(-127, 128, size=shape).astype(np.float32)
+    if kind == "whole_pixels":          # whole, but beyond ±127
+        return rng.integers(0, 256, size=shape).astype(np.float32)
+    if kind == "relu_out":              # half zeros, the rest fractional
+        return np.maximum(rng.normal(size=shape) * 50, 0).astype(np.float32)
+    assert kind == "zero"
+    return np.zeros(shape, np.float32)
+
+
+KINDS = ("random", "whole_int8", "whole_pixels", "relu_out", "zero")
+SHAPES = [(2, 5, 7, 3), (1, 4, 4, 64), (3, 6, 5, 33)]
+# the card tests' shapes: the CPU test of the plain version against the
+# reference takes them too, on the same inputs
+CUDA_SHAPES = [
+    (2, 5, 7, 3),          # 210 elements: no whole float4 tail
+    (3, 9, 11, 64),
+    (2, 13, 17, 33),       # a ragged channel tile
+    (1, 1, 1, 1),
+    (16, 114, 114, 64),    # past the stats grid's cap
+]
+
+
+def _nchw_storage(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (NHWC) as an NHWC view of NCHW storage: what a layer's
+    output looks like inside a block."""
+    return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+
+# -- the plain versions, on the CPU ------------------------------------------
+
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("shape", SHAPES + CUDA_SHAPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_features_equal_the_jax_reference(kind, shape, nchw):
+    """``int8_features_plain`` gives the reference's integers and its
+    scale (correctly rounded amax / 127) in either storage of x; at
+    ``CUDA_SHAPES`` on the inputs the card test hands the kernels, which
+    it holds to the plain version (the reference does not run on the
+    card)."""
+    pytest.importorskip("jax")
+    from repro.core.backends import _int_activations as jax_int_activations
+    xn = _inputs(kind, shape, seed=sum(shape))
+    want_q, want_s = jax_int_activations(xn)
+    x = torch.from_numpy(xn)
+    q, s = ref.int8_features_plain(_nchw_storage(x) if nchw else x)
+    assert q.is_contiguous() and q.shape == (shape[0], shape[3], *shape[1:3])
+    assert s.shape == (1,) and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.permute(0, 2, 3, 1).numpy(),
+                                  want_q.astype(np.float32))
+    assert s.item() == np.float32(want_s)
+    if kind in ("whole_int8", "zero"):
+        assert s.item() == 1.0 and torch.equal(q.permute(0, 2, 3, 1), x)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_host_path_features_equal_the_plain_version(kind):
+    """The host path (``backends._int_activations``) and the plain version
+    agree on the features and the scale."""
+    x = torch.from_numpy(_inputs(kind, (2, 6, 6, 5)))
+    xi, s = backends._int_activations(x)
+    q, qs = ref.int8_features_plain(x)
+    assert torch.equal(xi.permute(0, 3, 1, 2), q) and s == qs.item()
+
+
+def _layer(m: int, bias: bool, relu: bool, scale: float = 0.0123):
+    rng = np.random.default_rng(5)
+    b = rng.normal(size=m).astype(np.float32) if bias else None
+    return types.SimpleNamespace(
+        bias=b, bias_device=None if b is None else torch.from_numpy(b),
+        activation="relu" if relu else None,
+        code=types.SimpleNamespace(scale=np.float32(scale)))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+def test_plain_epilogue_equals_finish(bias, relu):
+    """``epilogue_plain`` is the parent chain's ``_finish(layer,
+    y.permute(0, 2, 3, 1) * scale)``, the scale's product in double."""
+    rng = np.random.default_rng(2)
+    y = torch.from_numpy(rng.integers(-5000, 5000, size=(2, 7, 5, 6))
+                         .astype(np.float32))
+    layer = _layer(7, bias, relu)
+    x_scale = torch.tensor([0.7431], dtype=torch.float32)
+    want = backends._finish(layer, y.permute(0, 2, 3, 1) * (
+        float(np.asarray(layer.code.scale)) * x_scale.item()))
+    got = ref.epilogue_plain(y, x_scale, float(layer.code.scale),
+                             layer.bias_device, relu)
+    assert torch.equal(got, want)
+    assert got.permute(0, 3, 1, 2).is_contiguous()
+
+
+# -- the wrapper's checks and its CPU route ----------------------------------
+
+def test_wrapper_on_cpu_tensors_runs_the_plain_version():
+    x = torch.from_numpy(_inputs("random", (2, 5, 5, 4)))
+    before = (ops.launches, dict(ops.launches_by_impl))
+    q, s = ops.int8_features(x)
+    pq, ps = ref.int8_features_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    y = torch.randn(2, 6, 3, 3)
+    layer = _layer(6, True, True)
+    assert torch.equal(ops.epilogue(y, s, 0.5, layer.bias_device, relu=True),
+                       ref.epilogue_plain(y, s, 0.5, layer.bias_device, True))
+    assert (ops.launches, ops.launches_by_impl) == before
+
+
+@pytest.mark.parametrize("bad, match", [
+    (torch.zeros(2, 3, 3, 4, dtype=torch.float64), "float32"),
+    (torch.zeros(2, 3, 4), "4-D"),
+    (torch.zeros(0, 3, 3, 4), "empty"),
+    (torch.zeros(2, 3, 3, 4, device="meta"), "CPU or CUDA"),
+])
+@pytest.mark.parametrize("entry", ["int8_features", "feature_scale",
+                                   "quantize"])
+def test_wrapper_rejects_bad_features(entry, bad, match):
+    call = {"int8_features": ops.int8_features,
+            "feature_scale": ops.feature_scale,
+            "quantize": lambda x: ops.quantize(x, torch.ones(1,
+                                                             device=x.device))
+            }[entry]
+    with pytest.raises(ValueError, match=match):
+        call(bad)
+
+
+@pytest.mark.parametrize("scale", [torch.ones(1, dtype=torch.float64),
+                                   torch.ones(2), torch.ones(()),
+                                   torch.ones(1, device="meta")])
+def test_quantize_rejects_a_bad_scale(scale):
+    with pytest.raises(ValueError, match="scale must be one float32"):
+        ops.quantize(torch.zeros(2, 3, 3, 4), scale)
+
+
+@pytest.mark.parametrize("y, x_scale, bias, match", [
+    (torch.zeros(2, 4, 3, 3, dtype=torch.float64), torch.ones(1), None,
+     "float32"),
+    (torch.zeros(4, 3, 3), torch.ones(1), None, "4-D"),
+    (torch.zeros(2, 4, 3, 3), torch.ones(1, dtype=torch.float64), None,
+     "x_scale must be"),
+    (torch.zeros(2, 4, 3, 3), torch.ones(2), None, "x_scale must be"),
+    (torch.zeros(2, 4, 3, 3), torch.ones(1, device="meta"), None,
+     "x_scale is on meta"),
+    (torch.zeros(2, 4, 3, 3), torch.ones(1), torch.ones(3), "bias must be"),
+    (torch.zeros(2, 4, 3, 3), torch.ones(1), torch.ones(4, device="meta"),
+     "bias is on meta"),
+    (torch.zeros(2, 4, 3, 3, device="meta"), torch.ones(1, device="meta"),
+     None, "CPU or CUDA"),
+])
+def test_wrapper_rejects_a_bad_epilogue(y, x_scale, bias, match):
+    with pytest.raises(ValueError, match=match):
+        ops.epilogue(y, x_scale, 0.5, bias)
+
+
+def test_smm_kernel_on_cpu_tensors_keeps_the_host_path(monkeypatch):
+    """CPU tensors on ``smm_kernel`` run ``_int_activations`` and
+    ``_finish`` as before: the kernels' wrapper is never called."""
+    rng = np.random.default_rng(0)
+    spec = codr.ModelSpec([codr.LayerSpec.conv(
+        rng.normal(size=(4, 3, 3, 3)).astype(np.float32),
+        activation="relu", name="c0")])
+    model = codr.compile(spec, codr.EncodeConfig(n_unique=16),
+                         backend="smm_kernel", device="cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the kernels' wrapper")
+    monkeypatch.setattr(ops, "int8_features", refuse)
+    monkeypatch.setattr(ops, "epilogue", refuse)
+    x = torch.from_numpy(_inputs("whole_pixels", (2, 8, 8, 3)))
+    layer = model.model.layers[0]
+    xi, s = backends._int_activations(x)
+    from repro_torch.kernels.smm_conv import smm_conv_batched
+    y = smm_conv_batched(xi.permute(0, 3, 1, 2).contiguous(), layer.code,
+                         operands=layer.smm_operands())
+    want = backends._finish(layer, y.permute(0, 2, 3, 1) * (layer.scale * s))
+    assert torch.equal(model.run(x), want)
+
+
+# -- on the card -------------------------------------------------------------
+
+def _both(q, s, want_q, want_s):
+    assert q.shape == want_q.shape and q.is_contiguous()
+    assert torch.equal(q, want_q), float((q - want_q).abs().max())
+    assert torch.equal(s, want_s), (s.item(), want_s.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+def test_cuda_features_equal_the_plain_version(shape, kind, nchw,
+                                               cuda_device):
+    """stats + quantize, in either storage of x, equal the plain version
+    bit for bit, on the card and on the host; scale 1 and q == x for whole
+    numbers within ±127 and for zeros.  The plain version equals the JAX
+    reference on these very inputs in
+    ``test_plain_features_equal_the_jax_reference`` (on the CPU)."""
+    xc = torch.from_numpy(_inputs(kind, shape, seed=sum(shape)))
+    x = xc.to(cuda_device)
+    x = _nchw_storage(x) if nchw else x
+    before = dict(ops.launches_by_impl)
+    q, s = ops.int8_features(x)
+    torch.cuda.synchronize()
+    quant = "quantize" if nchw or shape[3] == 1 else "quantize_nhwc"
+    assert {k: ops.launches_by_impl[k] - before[k] for k in ops.IMPLS} == \
+        {k: int(k in ("stats", quant)) for k in ops.IMPLS}
+    _both(q, s, *ref.int8_features_plain(x))
+    pq, ps = ref.int8_features_plain(xc)
+    _both(q.cpu(), s.cpu(), pq, ps)
+    if kind in ("whole_int8", "zero"):
+        assert s.item() == 1.0
+        assert torch.equal(q.permute(0, 2, 3, 1).cpu(), xc)
+
+
+@pytest.mark.cuda
+def test_cuda_features_of_an_unaligned_view(cuda_device):
+    """x one float past a 16-byte boundary: the scalar paths."""
+    xn = _inputs("random", (2, 6, 7, 4))
+    buf = torch.zeros(xn.size + 1, device=cuda_device)
+    buf[1:] = torch.from_numpy(xn.ravel()).to(cuda_device)
+    x = buf[1:].view(xn.shape)
+    q, s = ops.int8_features(x)
+    _both(q, s, *ref.int8_features_plain(x))
+    x2 = buf[1:].view(2, 4, 6, 7).permute(0, 2, 3, 1)
+    _both(*ops.int8_features(x2), *ref.int8_features_plain(x2))
+
+
+@pytest.mark.cuda
+def test_cuda_stats_left_ready_across_calls_without_a_sync(cuda_device):
+    """Back-to-back calls on one stream, no sync between: each launch
+    leaves the stream's accumulator zero for the next, so a large amax
+    does not leak into a small one, nor a fractional input into a whole
+    one."""
+    xs = [torch.from_numpy(_inputs(kind, shape, seed=i)).to(cuda_device)
+          for i, (kind, shape) in enumerate([
+              ("random", (8, 33, 33, 64)), ("whole_int8", (2, 9, 9, 3)),
+              ("relu_out", (4, 17, 17, 32)), ("zero", (1, 3, 3, 5)),
+              ("whole_pixels", (3, 8, 8, 3))])]
+    xs[0] = xs[0] * 100
+    got = [ops.int8_features(x) for x in xs + xs[::-1]]
+    torch.cuda.synchronize()
+    for x, (q, s) in zip(xs + xs[::-1], got):
+        _both(q, s, *ref.int8_features_plain(x))
+
+
+def _padded_y(rng, b, m, m_pad, ro, co, device):
+    full = torch.from_numpy(rng.integers(-20000, 20000, size=(
+        b, m_pad, ro, co)).astype(np.float32)).to(device)
+    return full[:, :m]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("b, m, m_pad, ro, co", [
+    (2, 7, 8, 5, 6),        # a padded channel axis
+    (3, 16, 16, 7, 7),      # 49 pixels: no float4 rows
+    (1, 5, 8, 4, 4),        # one image, padded
+    (4, 64, 64, 56, 56),
+])
+def test_cuda_epilogue_equals_finish(b, m, m_pad, ro, co, bias, relu,
+                                     cuda_device):
+    """The epilogue on smm_conv's (padded) NCHW output equals
+    ``_finish(layer, y.permute(0, 2, 3, 1) * scale)`` bit for bit, in the
+    same NCHW storage behind the NHWC view."""
+    rng = np.random.default_rng(b * m + ro)
+    y = _padded_y(rng, b, m, m_pad, ro, co, cuda_device)
+    layer = _layer(m, bias, relu, scale=0.0371)
+    if bias:
+        layer.bias_device = layer.bias_device.to(cuda_device)
+    x_scale = torch.tensor([1.8930412], device=cuda_device)
+    before = ops.launches_by_impl["epilogue"]
+    got = ops.epilogue(y, x_scale, float(layer.code.scale),
+                       layer.bias_device, relu=relu)
+    torch.cuda.synchronize()
+    assert ops.launches_by_impl["epilogue"] == before + 1
+    want = backends._finish(layer, y.permute(0, 2, 3, 1) * (
+        float(np.asarray(layer.code.scale)) * x_scale.item()))
+    assert got.shape == want.shape == (b, ro, co, m)
+    assert got.permute(0, 3, 1, 2).is_contiguous()
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.epilogue_plain(y, x_scale,
+                                               float(layer.code.scale),
+                                               layer.bias_device, relu))
+
+
+def _vgg_like(device: str, hw: int = 20):
+    """Two blocks of VGG16's first widths at a small plane, on
+    ``smm_kernel``: conv 3→64→64, then 64→128→128."""
+    rng = np.random.default_rng(3)
+    def conv(m, n, name):
+        w = rng.normal(size=(m, n, 3, 3)).astype(np.float32) * 0.5
+        w[rng.random(w.shape) > 0.4] = 0
+        return codr.LayerSpec.conv(w, activation="relu", name=name)
+    blocks = [[conv(64, 3, "c0"), conv(64, 64, "c1")],
+              [conv(128, 64, "c2"), conv(128, 128, "c3")]]
+    return [codr.compile(codr.ModelSpec(b), codr.EncodeConfig(n_unique=16),
+                         backend="smm_kernel", device=device)
+            for b in blocks]
+
+
+@pytest.mark.cuda
+def test_cuda_vgg_like_chain_reads_nothing_and_equals_the_reference(
+        cuda_device):
+    """A small VGG16-shaped chain on ``smm_kernel``: three launches a
+    layer (``quantize_nhwc`` at a block's first layer), no
+    ``codr.host_read`` span under a profiler, and the output of every
+    block equal to the host lane (``smm``: ``_int_activations``, NumPy
+    SMM, ``_finish``) and to the plain chain."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.smm_conv import ref as smm_ref
+    models = _vgg_like("cuda")
+    x0 = torch.from_numpy(_inputs("whole_pixels", (4, 24, 24, 3))).to(
+        cuda_device)
+
+    def chain(run):
+        outs, x = [], x0
+        for k, model in enumerate(models):
+            if k:
+                x = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(
+                    0, 2, 3, 1).contiguous()
+            x = run(model, x)
+            outs.append(x)
+        return outs
+
+    chain(lambda mdl, x: mdl.run(x))             # builds and packs first
+    torch.cuda.synchronize()
+    before = dict(ops.launches_by_impl)
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = chain(lambda mdl, x: mdl.run(x))
+        torch.cuda.synchronize()
+    recorded = [s.name for s in spans.spans()]
+    spans.clear()
+    assert recorded.count("codr.features") == 4
+    assert "codr.host_read" not in recorded
+    assert {k: ops.launches_by_impl[k] - before[k] for k in ops.IMPLS} == \
+        {"stats": 4, "quantize": 2, "quantize_nhwc": 2, "epilogue": 4}
+    host = chain(lambda mdl, x: mdl.run(x, backend="smm"))
+
+    def plain(mdl, x):
+        for layer in mdl.model.layers:
+            q, s = ref.int8_features_plain(x)
+            d, e, meta = layer.smm_operands()
+            ro, co = layer.out_hw(*x.shape[1:3])
+            y = smm_ref.smm_conv_plain(q, d, e, t_m=meta["t_m"], ro=ro,
+                                       co=co)[:, :layer.code.shape[0]]
+            x = ref.epilogue_plain(y, s, layer.scale, None, True)
+        return x
+    for g, h, p in zip(got, host, chain(plain)):
+        assert torch.equal(g, h) and torch.equal(g, p)
+
+
+@pytest.mark.cuda
+def test_cuda_a_nan_input_still_fails_loudly(cuda_device):
+    """A NaN feature keeps the scale at 1 and reaches ``smm_conv`` as NaN,
+    whose sm90 instance stops the launch (``__trap``): the failure shows
+    at the next sync, never as a number.  A trapped launch ends the
+    process's CUDA context, so it runs apart."""
+    code = "\n".join([
+        "import numpy as np, torch",
+        "import repro_torch.api as codr",
+        "w = np.random.default_rng(0).normal(size=(8, 4, 3, 3))",
+        "spec = codr.ModelSpec([codr.LayerSpec.conv(w.astype(np.float32),",
+        "                                           activation='relu')])",
+        "m = codr.compile(spec, codr.EncodeConfig(n_unique=16),",
+        "                 backend='smm_kernel', device='cuda')",
+        "x = torch.rand(2, 10, 10, 4, device='cuda')",
+        "m.run(x); torch.cuda.synchronize()",
+        "x[1, 3, 4, 2] = float('nan')",
+        "y = m.run(x)",
+        "print('launched', flush=True)",
+        "torch.cuda.synchronize()",
+        "print('no error', float(y.abs().max()), flush=True)",
+    ])
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert "launched" in proc.stdout, proc.stderr
+    assert "no error" not in proc.stdout
+    assert proc.returncode != 0
