@@ -55,7 +55,10 @@ epilogue held to their plain versions in the layer-by-layer replay);
 ``features_phase`` then holds each of them to its plain version at
 ``vgg16.b64``'s shapes (batch 64: conv1, and the block-first inputs of
 ``quantize_nhwc``) and times it there against its bytes' bound and
-against the host path it replaced.
+against the host path it replaced; ``inception_features_phase`` does the
+same for the kernels of GoogLeNet's modules at ``googlenet.b256``'s
+shapes (batch 256: ``quantize_pad``, ``max_pool``, the epilogue into a
+channel slice).
 
 Right after the CNN path, ``oracle_phase`` holds the codec's scalar
 oracle on that VGG16 model: ``rle.decode_vector`` (one bit-reader field
@@ -589,7 +592,8 @@ def cnn_path(args) -> dict:
     # storage behind the NHWC view
     n_layers = len(spec)
     feat_want = {"stats": n_layers, "quantize": n_layers - 1,
-                 "quantize_nhwc": 1, "epilogue": n_layers}
+                 "quantize_nhwc": 1, "quantize_pad": 0, "max_pool": 0,
+                 "epilogue": n_layers}
     say(f"cnn int8_features launches per request {feat_per_request} "
         f"beside smm_conv's {per_request}; in all {feat_ops.launches} "
         f"{dict(feat_ops.launches_by_impl)}")
@@ -889,6 +893,102 @@ def features_phase(args, batch: int = 64, hw: int = 226,
         f"{sums['plain_ms']:.4f} ms; the host path it replaced "
         f"{out['host_path_ms']:.4f} ms (its two reads included)")
     return out
+
+
+def inception_features_phase(args, batch: int = 256) -> dict:
+    """The ``int8_features`` kernels that GoogLeNet's inception modules
+    add, alone at ``googlenet.b256``'s shapes (batch 256, the published
+    widths of ``GOOGLENET_INCEPTION``): ``quantize_pad`` at the #3x3 and
+    #5x5 inputs of 3a, 3b, 4a and 4b (the reduce convolutions' ReLU
+    outputs, NCHW storage behind the NHWC view, on a border of 1 and 2);
+    ``max_pool`` at the five poolings of a request (each module's pool
+    branch on its int8 features, 3x3/1 padding 1, and the 3x3/2 ceil-mode
+    pool between 3b and 4a on 3b's output); the epilogue of 3a's four
+    branches, each into its channel slice of the module's 256-channel
+    output.  Each is held to its plain version bit for bit (the slices
+    against the plain epilogues concatenated) and timed by CUDA events
+    beside its bytes' bound (float32 in once and out once, at 3.35 TB/s)
+    and the plain version (the epilogues' with ``torch.cat``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_cnns import GOOGLENET_INCEPTION
+    from repro_torch.kernels.int8_features import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 6)
+
+    def relu_out(c, hw):
+        return torch.relu(torch.randn(batch, c, hw, hw, device="cuda",
+                                      generator=g) * 40)
+
+    def int_features(c, hw):
+        return torch.randint(-127, 128, (batch, c, hw, hw), device="cuda",
+                             generator=g).float()
+    mods = {k: GOOGLENET_INCEPTION[k] for k in ("3a", "3b", "4a", "4b")}
+    timed = []                      # (name, kernel, plain, bytes)
+    for name, (hw, _, _, r3, _, r5, _, _) in mods.items():
+        for kind, c, pad in (("3x3", r3, 1), ("5x5", r5, 2)):
+            x = relu_out(c, hw).permute(0, 2, 3, 1)
+            s = ops.feature_scale(x)
+            if not torch.equal(ops.quantize(x, s, pad),
+                               ref.quantize_plain(x, s, pad)):
+                fail(f"int8_features quantize_pad at {name}'s #{kind} input "
+                     f"differs from its plain version")
+            timed.append((f"quantize_pad.{name}.{kind}",
+                          functools.partial(ops.quantize, x, s, pad),
+                          functools.partial(ref.quantize_plain, x, s, pad),
+                          4 * batch * c * (hw * hw + (hw + 2 * pad) ** 2)))
+    pools = [(f"{k}.branch", m[1], m[0], (3, 1, 1, False))
+             for k, m in mods.items()]
+    c_3b = sum(mods["3b"][i] for i in (2, 4, 6, 7))
+    pools.insert(2, ("3x3s2", c_3b, 28, (3, 2, 0, True)))
+    for name, c, hw, pool in pools:
+        x = (int_features if name.endswith("branch") else relu_out)(c, hw)
+        got = ops.max_pool(x, *pool)
+        if not torch.equal(got, ref.max_pool_plain(x, *pool)):
+            fail(f"int8_features max_pool at {name} differs from its plain "
+                 f"version")
+        timed.append((f"max_pool.{name}",
+                      functools.partial(ops.max_pool, x, *pool),
+                      functools.partial(ref.max_pool_plain, x, *pool),
+                      4 * (x.numel() + got.numel())))
+    hw, _, n1, _, n3, _, n5, pp = mods["3a"]
+    widths = (n1, n3, n5, pp)
+    ys = [torch.randint(-30000, 30000, (batch, m, hw, hw), device="cuda",
+                        generator=g).float() for m in widths]
+    biases = [torch.randn(m, device="cuda", generator=g) for m in widths]
+    scale = ops.feature_scale(relu_out(mods["3a"][1], hw))
+    out = torch.empty(batch, sum(widths), hw, hw, device="cuda")
+
+    def into_slices():
+        c0 = 0
+        for y, b in zip(ys, biases):
+            ops.epilogue(y, scale, 0.0123, b, relu=True,
+                         out=out[:, c0:c0 + y.shape[1]])
+            c0 += y.shape[1]
+
+    def plain_cat():
+        return torch.cat([ref.epilogue_plain(y, scale, 0.0123, b, True)
+                          for y, b in zip(ys, biases)], dim=3)
+    into_slices()
+    if not torch.equal(out.permute(0, 2, 3, 1), plain_cat()):
+        fail("int8_features epilogue into 3a's channel slices differs from "
+             "its plain version")
+    timed.append(("epilogue.3a.slices", into_slices, plain_cat,
+                  8 * sum(y.numel() for y in ys)))
+    rows = {}
+    for name, fn, plain, n_bytes in timed:
+        ms = cuda_ms(fn, 10)
+        b_ms = n_bytes / HBM_BYTES_S * 1e3
+        rows[name] = {"ms": ms, "bound_ms": b_ms, "bytes": n_bytes,
+                      "roofline": b_ms / ms, "plain_ms": cuda_ms(plain, 3)}
+        say(f"int8_features {name} of googlenet.b256: {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({n_bytes} bytes, {100 * b_ms / ms:.1f}%), "
+            f"plain {rows[name]['plain_ms']:.4f} ms [{SMI}]")
+    sums = {k: float(np.sum([r[k] for r in rows.values()]))
+            for k in ("ms", "bound_ms", "plain_ms")}
+    say(f"int8_features googlenet.b256 kernels in all {sums['ms']:.4f} ms, "
+        f"bound {sums['bound_ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms")
+    return {"batch": batch, "rows": rows, "sum": sums}
 
 
 # ---------------------------------------------------------------------------
@@ -4434,6 +4534,10 @@ def main() -> int:
     row["int8_features"] = features_phase(args)
     torch.cuda.empty_cache()
     say(f"int8_features phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    row["int8_features_inception"] = inception_features_phase(args)
+    torch.cuda.empty_cache()
+    say(f"int8_features inception phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _add_phase(kernels[0], "oracle", oracle_phase(args, cnn_model))
     say(f"oracle phase: {time.perf_counter() - t0:.1f} s")

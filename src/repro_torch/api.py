@@ -24,7 +24,8 @@ from repro_torch.checkpoint.packed import (CODR_FORMAT_VERSION,  # noqa: F401
 from repro_torch.core.api import (EMBED_INCLUDE,  # noqa: F401
                                   PACK_INCLUDE, CompiledModel,
                                   CompiledParams, EncodeConfig, LayerSpec,
-                                  ModelSpec, compile, compile_params)
+                                  ModelSpec, ModuleSpec, PoolSpec, compile,
+                                  compile_params)
 from repro_torch.core.backends import (Backend, BackendCaps,  # noqa: F401
                                        available_backends, get_backend,
                                        register)
@@ -34,7 +35,8 @@ from repro_torch.core.codr_linear import (PackedEmbedding,  # noqa: F401
                                           pack_projection)
 
 __all__ = [
-    "LayerSpec", "ModelSpec", "EncodeConfig", "CompiledModel", "compile",
+    "LayerSpec", "PoolSpec", "ModuleSpec", "ModelSpec", "EncodeConfig",
+    "CompiledModel", "compile",
     "PACK_INCLUDE", "EMBED_INCLUDE", "CompiledParams", "compile_params",
     "PackedLinear", "PackedWeight", "PackedEmbedding", "dense_weight",
     "pack_projection", "pack_embedding",

@@ -48,4 +48,21 @@ GOOGLENET = [
     ConvShape(128, 32, 5, 5, 18, 18, 1),
 ]
 
+# GoogLeNet's inception modules, Szegedy et al. arXiv:1409.4842 Table 1:
+# name -> (input plane, input channels, #1x1, #3x3 reduce, #3x3,
+# #5x5 reduce, #5x5, pool proj); a module's output channels are
+# #1x1 + #3x3 + #5x5 + pool proj, the next module's input.  A 3x3/2 max
+# pooling comes after 3b and after 4e.
+GOOGLENET_INCEPTION = {
+    "3a": (28, 192, 64, 96, 128, 16, 32, 32),
+    "3b": (28, 256, 128, 128, 192, 32, 96, 64),
+    "4a": (14, 480, 192, 96, 208, 16, 48, 64),
+    "4b": (14, 512, 160, 112, 224, 24, 64, 64),
+    "4c": (14, 512, 128, 128, 256, 24, 64, 64),
+    "4d": (14, 512, 112, 144, 288, 32, 64, 64),
+    "4e": (14, 528, 256, 160, 320, 32, 128, 128),
+    "5a": (7, 832, 256, 160, 320, 32, 128, 128),
+    "5b": (7, 832, 384, 192, 384, 48, 128, 128),
+}
+
 PAPER_CNNS = {"alexnet": ALEXNET, "vgg16": VGG16, "googlenet": GOOGLENET}

@@ -1,8 +1,10 @@
 """Spec → compile → run: the port's CoDR engine API — the CNN lane and
 the transformer lane of ``repro.core.api``.
 
-1. :class:`ModelSpec` — a declarative layer graph, from raw arrays
-   (:meth:`LayerSpec.conv` / :meth:`LayerSpec.dense`), from the paper
+1. :class:`ModelSpec` — a declarative sequence of steps: layers from raw
+   arrays (:meth:`LayerSpec.conv`, VALID or zero-padded, /
+   :meth:`LayerSpec.dense`), max poolings (:class:`PoolSpec`) and branch
+   modules (:class:`ModuleSpec`, an inception module); from the paper
    CNNs' geometry (:meth:`ModelSpec.from_shapes`,
    :meth:`ModelSpec.from_paper_cnn`), or from any conv/dense params tree
    (:meth:`ModelSpec.from_params`).  No encoding happens here.
@@ -40,7 +42,8 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.core.spans import span
 
 __all__ = [
-    "LayerSpec", "ModelSpec", "EncodeConfig", "CompiledModel", "compile",
+    "LayerSpec", "PoolSpec", "ModuleSpec", "ModelSpec", "EncodeConfig",
+    "CompiledModel", "compile",
     "PACK_INCLUDE", "EMBED_INCLUDE", "CompiledParams", "compile_params",
 ]
 
@@ -53,7 +56,8 @@ __all__ = [
 class LayerSpec:
     """One declarative layer: float weights + geometry, nothing encoded.
 
-    ``kind="conv"``   → ``weight`` is OIHW ``(M, N, RK, CK)``.
+    ``kind="conv"``   → ``weight`` is OIHW ``(M, N, RK, CK)``; ``padding``
+                        zero pixels each side of its input (0: VALID).
     ``kind="linear"`` → ``weight`` is ``(M, N)`` = (out, in features).
     """
 
@@ -63,6 +67,7 @@ class LayerSpec:
     stride: int = 1
     activation: str | None = None
     name: str = ""
+    padding: int = 0
 
     def __post_init__(self):
         w = np.asarray(self.weight, dtype=np.float32)
@@ -77,6 +82,10 @@ class LayerSpec:
                              f"{self.name or '?'}")
         if self.stride < 1:
             raise ValueError(f"stride must be >= 1, got {self.stride}")
+        if self.padding < 0 or (self.padding and self.kind != "conv"):
+            raise ValueError(f"padding must be >= 0 and on a conv layer, "
+                             f"got {self.padding} for layer "
+                             f"{self.name or '?'}")
         if self.bias is not None:
             b = np.asarray(self.bias, dtype=np.float32)
             if b.shape != (w.shape[0],):
@@ -85,10 +94,10 @@ class LayerSpec:
             object.__setattr__(self, "bias", b)
 
     @classmethod
-    def conv(cls, weight, bias=None, *, stride: int = 1,
+    def conv(cls, weight, bias=None, *, stride: int = 1, padding: int = 0,
              activation: str | None = None, name: str = "conv"):
         return cls("conv", weight, bias, stride=stride,
-                   activation=activation, name=name)
+                   activation=activation, name=name, padding=padding)
 
     @classmethod
     def dense(cls, weight, bias=None, *, activation: str | None = None,
@@ -102,6 +111,45 @@ class LayerSpec:
     @property
     def in_features(self) -> int:
         return int(self.weight.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolSpec:
+    """A max pooling step: ``window`` × ``window`` at ``stride`` (default
+    ``window``), ``padding`` pixels each side that never win the max,
+    ``ceil_mode`` as ``F.max_pool2d``'s."""
+
+    window: int
+    stride: int | None = None
+    padding: int = 0
+    ceil_mode: bool = False
+    name: str = "pool"
+    kind = "pool"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModuleSpec:
+    """A branch module (an inception module): ``branches``, each a
+    sequence of conv :class:`LayerSpec` and :class:`PoolSpec` steps that
+    ends with a convolution, all reading the module's input; their outputs
+    are concatenated on channels in declared order."""
+
+    branches: tuple
+    name: str = "module"
+    kind = "module"
+
+    def __post_init__(self):
+        branches = tuple(tuple(b) for b in self.branches)
+        object.__setattr__(self, "branches", branches)
+        for i, b in enumerate(branches):
+            if not b or b[-1].kind != "conv" or any(
+                    s.kind not in ("conv", "pool") for s in b):
+                raise ValueError(f"module {self.name!r} branch {i}: conv "
+                                 f"layers and pools that end with a conv")
+
+    @property
+    def layers(self) -> list:
+        return [s for b in self.branches for s in b if s.kind == "conv"]
 
 
 def _flatten_with_path(tree, path=()):
@@ -119,30 +167,52 @@ def _flatten_with_path(tree, path=()):
     return [(path, tree)]
 
 
-class ModelSpec:
-    """A declarative stack of :class:`LayerSpec` — conv layers first,
-    then linear (the engine flattens at the boundary)."""
+def _branch_channels(steps, given: tuple) -> tuple:
+    """``(channels, what gives them)`` after a run of conv and pool steps
+    on an input ``given`` the same way (``(None, "")``: not known yet);
+    raises where a conv layer expects other channels."""
+    channels, prev = given
+    for st in steps:
+        if st.kind == "conv":
+            if channels is not None and st.in_features != channels:
+                raise ValueError(f"layer {st.name!r} expects "
+                                 f"{st.in_features} input channels, "
+                                 f"previous {prev} produces {channels}")
+            channels, prev = st.out_features, f"layer {st.name!r}"
+    return channels, prev
 
-    def __init__(self, layers: Sequence[LayerSpec]):
-        self.layers = list(layers)
+
+class ModelSpec:
+    """A declarative sequence of steps — conv :class:`LayerSpec`,
+    :class:`PoolSpec` and :class:`ModuleSpec` first, then linear layers
+    (the engine flattens at the boundary).  ``steps`` holds them as
+    given (the argument ``layers``), ``layers`` every :class:`LayerSpec`
+    in declared order, the modules' branches included; a plain list of
+    layers is both."""
+
+    def __init__(self, layers: Sequence):
+        self.steps = list(layers)
+        self.layers = [ls for st in self.steps
+                       for ls in (st.layers if st.kind == "module"
+                                  else [] if st.kind == "pool" else [st])]
         if not self.layers:
             raise ValueError("ModelSpec needs at least one layer")
         seen_linear = False
-        prev = None
-        for ls in self.layers:
-            if ls.kind == "conv":
-                if seen_linear:
-                    raise ValueError(f"conv layer {ls.name!r} after a "
-                                     f"linear layer — conv layers must "
-                                     f"precede the linear head")
-                if prev is not None and ls.in_features != prev.out_features:
-                    raise ValueError(
-                        f"layer {ls.name!r} expects {ls.in_features} input "
-                        f"channels, previous layer {prev.name!r} produces "
-                        f"{prev.out_features}")
-                prev = ls
-            else:
+        given = (None, "")             # what the previous step produces
+        for st in self.steps:
+            if st.kind == "linear":
                 seen_linear = True
+                continue
+            if seen_linear:
+                what = "layer" if st.kind == "conv" else "step"
+                raise ValueError(f"{st.kind} {what} {st.name!r} after a "
+                                 f"linear layer — conv layers must precede "
+                                 f"the linear head")
+            if st.kind == "module":
+                given = (sum(_branch_channels(b, given)[0]
+                             for b in st.branches), f"module {st.name!r}")
+            else:
+                given = _branch_channels([st], given)
 
     def __len__(self) -> int:
         return len(self.layers)
@@ -530,24 +600,31 @@ def compile(spec: ModelSpec, config: EncodeConfig | None = None, *,
     if not ok:
         raise ValueError(f"cannot compile: {reason}")
 
-    layers: list = []
-    for i, ls in enumerate(spec.layers):
-        name = ls.name or f"layer{i}"
+    index = {id(ls): i for i, ls in enumerate(spec.layers)}
+
+    def build(st):
+        if st.kind == "pool":
+            return _engine.MaxPool2D(st.window, st.stride, st.padding,
+                                     st.ceil_mode, name=st.name)
+        if st.kind == "module":
+            return _engine.BranchModule(
+                [[build(s) for s in b] for b in st.branches], name=st.name)
+        name = st.name or f"layer{index[id(st)]}"
         cfg = _plan_config(plan, name, config)
-        if ls.kind == "conv":
-            layers.append(_engine.CodrConv2D(
-                ls.weight, ls.bias, stride=ls.stride, t_m=cfg.t_m,
-                t_n=cfg.t_n, activation=ls.activation, name=name,
-                decode_source=cfg.decode_source, n_unique=cfg.n_unique,
-                rle_params=cfg.rle_params, device=dev))
-        else:
-            layers.append(_engine.CodrLinear(
-                ls.weight, ls.bias, t_m=cfg.t_m_linear,
-                activation=ls.activation, name=name,
-                decode_source=cfg.decode_source, n_unique=cfg.n_unique,
-                rle_params=cfg.rle_params, device=dev))
-    return CompiledModel(_engine.CodrModel(layers), spec, config, be,
-                         plan=plan)
+        if st.kind == "conv":
+            return _engine.CodrConv2D(
+                st.weight, st.bias, stride=st.stride, padding=st.padding,
+                t_m=cfg.t_m, t_n=cfg.t_n, activation=st.activation,
+                name=name, decode_source=cfg.decode_source,
+                n_unique=cfg.n_unique, rle_params=cfg.rle_params, device=dev)
+        return _engine.CodrLinear(
+            st.weight, st.bias, t_m=cfg.t_m_linear,
+            activation=st.activation, name=name,
+            decode_source=cfg.decode_source, n_unique=cfg.n_unique,
+            rle_params=cfg.rle_params, device=dev)
+
+    return CompiledModel(_engine.CodrModel([build(st) for st in spec.steps]),
+                         spec, config, be, plan=plan)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -215,11 +216,23 @@ class Backend(abc.ABC):
         embedding, with the dense ``unembed`` numerics."""
         return torch.matmul(x, w.dense().to(x.dtype).T)
 
+    def pool_nchw(self, pool, x: torch.Tensor) -> torch.Tensor:
+        """One max pooling (:class:`~repro_torch.core.engine.MaxPool2D`)
+        of NCHW ``x``.  Default: ``F.max_pool2d``."""
+        return pool.pool_nchw(x)
+
+    def module(self, model, mod, x: torch.Tensor) -> torch.Tensor:
+        """Forward one branch module (:class:`~repro_torch.core.engine.
+        BranchModule`) of ``model``.  Default: the float path, each branch
+        in turn through :meth:`step`, the outputs concatenated."""
+        return model.run_module(mod, x, self.step, self)
+
     def run_model(self, model, batch) -> torch.Tensor:
         """Forward a batch through a :class:`~repro_torch.core.engine.
-        CodrModel`: moved to the model's device as float32, then
-        :meth:`step` chained over the layers."""
-        return model._chain(model.as_input(batch), self.step)
+        CodrModel`: moved to the model's device as float32, then its
+        steps in turn, :meth:`step` a layer, :meth:`pool_nchw` a pooling
+        and :meth:`module` a module."""
+        return model._chain(model.as_input(batch), self.step, self)
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +300,82 @@ class TiledBackend(Backend):  # codrlint: disable=capability-consistency — 'ti
         return layer(x)
 
 
-class SmmBackend(Backend):  # codrlint: disable=capability-consistency — 'smm' keys the port's own registry, separate from repro.core.backends'
+class _IntFeatureBackend(Backend):  # codrlint: disable=capability-consistency — the abstract base of the smm and smm_kernel lanes, never registered itself
+    """What the two lanes of the 8-bit feature path share: a conv layer is
+    :meth:`features` (the int8 features of its input, on the layer's zero
+    border) then :meth:`conv_int` (the convolution and the epilogue); a
+    branch module quantizes each distinct input once.
+
+    In a module (:meth:`module`): the module input's features are made
+    once and shared by every branch that starts on them, a 1×1
+    convolution's directly and a pooling branch's max-pooled (``x`` ≥ 0
+    after a ReLU keeps its amax under the pooling, and rounding is
+    monotone, so this equals quantizing the pooled tensor unless that
+    tensor is whole numbers within ±127); a later convolution of a branch
+    quantizes its input onto its zero border; each branch's last epilogue
+    writes its channel slice of the module's NCHW output, so nothing is
+    concatenated."""
+
+    def features(self, x: torch.Tensor, pad: int):
+        """``(q, scale)``: NHWC float ``x``'s int8 features as contiguous
+        NCHW on a zero border of ``pad`` pixels, and their scale.  Here
+        the host path (:func:`_int_activations`)."""
+        xi, scale = _int_activations(x)
+        q = xi.permute(0, 3, 1, 2)
+        if pad:
+            q = torch.nn.functional.pad(q, (pad,) * 4)
+        return q.contiguous(), scale
+
+    @abc.abstractmethod
+    def conv_int(self, layer, q: torch.Tensor, scale,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+        """``layer`` on features ``(q, scale)`` of :meth:`features`
+        (border included): NHWC output, its epilogue applied, written
+        into NCHW ``out`` (a channel slice) where given."""
+
+    def conv(self, layer, x):
+        return self.conv_int(layer, *self.features(x, layer.padding))
+
+    def module(self, model, mod, x):
+        ro, co = mod.out_hw(x.shape[1], x.shape[2])
+        out = torch.empty(x.shape[0], mod.out_channels, ro, co,
+                          dtype=torch.float32, device=x.device)
+        shared = None                  # the module input's features
+        c0 = 0
+        for i, branch in enumerate(mod.branches):
+            m = branch[-1].code.shape[0]
+            with mod.branch_span(i):
+                if shared is None:
+                    shared = self.features(x, 0)
+                h, feats = x, shared
+                for k, s in enumerate(branch):
+                    if s.kind == "pool" and feats is not None:
+                        with span("codr.pool", window=s.window,
+                                  stride=s.stride):
+                            feats = (self.pool_nchw(s, feats[0]), feats[1])
+                    elif s.kind == "pool":
+                        h = model.run_pool(s, h, self)
+                    else:
+                        h = model.run_layer(s, h, functools.partial(
+                            self._conv_on, feats=feats,
+                            out=out[:, c0:c0 + m] if k == len(branch) - 1
+                            else None))
+                        feats = None
+            c0 += m
+        return out.permute(0, 2, 3, 1)
+
+    def _conv_on(self, layer, x, feats, out):
+        """``layer`` on the shared features ``feats`` (on the layer's
+        border), or on ``x``'s own where there are none."""
+        if feats is None:
+            feats = self.features(x, layer.padding)
+        elif layer.padding:
+            feats = (torch.nn.functional.pad(feats[0], (layer.padding,) * 4),
+                     feats[1])
+        return self.conv_int(layer, *feats, out=out)
+
+
+class SmmBackend(_IntFeatureBackend):  # codrlint: disable=capability-consistency — 'smm' keys the port's own registry, separate from repro.core.backends'
     """Faithful MPE/APE execution model in NumPy on the host
     (:func:`repro_torch.core.smm.conv2d_smm_batched`), bit-exact in
     int64."""
@@ -299,17 +387,16 @@ class SmmBackend(Backend):  # codrlint: disable=capability-consistency — 'smm'
                        description="NumPy faithful MPE/APE execution "
                                    "(8-bit feature path, host)")
 
-    def conv(self, layer, x):
-        xi, x_scale = _int_activations(x)
-        scale = float(np.asarray(layer.code.scale)) * x_scale
-        xi = xi.permute(0, 3, 1, 2).cpu().numpy().astype(np.int32)
+    def conv_int(self, layer, q, scale, out=None):
+        scale = float(np.asarray(layer.code.scale)) * scale
+        xi = q.cpu().numpy().astype(np.int32)
         outs = smm.conv2d_smm_batched(xi, layer.code, layer.stride)
         y = torch.from_numpy(np.moveaxis(outs, 1, 3)).to(
-            device=x.device, dtype=torch.float32)
-        return _finish(layer, y * scale)
+            device=q.device, dtype=torch.float32)
+        return _into(_finish(layer, y * scale), out)
 
 
-class SmmKernelBackend(Backend):  # codrlint: disable=capability-consistency — 'smm_kernel' keys the port's own registry, separate from repro.core.backends'
+class SmmKernelBackend(_IntFeatureBackend):  # codrlint: disable=capability-consistency — 'smm_kernel' keys the port's own registry, separate from repro.core.backends'
     """The CUDA MPE/APE kernel (:mod:`repro_torch.kernels.smm_conv`): the
     whole batch in one launch, operands packed once per layer and cached
     on it.  On CPU tensors the kernel's plain version runs instead."""
@@ -332,28 +419,50 @@ class SmmKernelBackend(Backend):  # codrlint: disable=capability-consistency —
                 description=kc["description"])
         return self._caps
 
-    def conv(self, layer, x):
-        """On a CUDA tensor: the feature path and the epilogue as the
-        ``int8_features`` kernels around ``smm_conv`` (the scale stays on
-        the device, nothing is read back); on a CPU tensor:
-        :func:`_int_activations` and :func:`_finish`."""
+    def features(self, x, pad):
+        """On a CUDA tensor the ``int8_features`` kernels (``stats``, then
+        ``quantize`` / ``quantize_nhwc``, or ``quantize_pad`` onto the
+        border), the scale kept on the device, nothing read back; on a
+        CPU tensor the host path."""
+        if x.device.type != "cuda":
+            return super().features(x, pad)
+        from repro_torch.kernels.int8_features import ops as feats
+        with span("codr.features"):
+            return feats.int8_features(x.to(torch.float32), pad)
+
+    def pool_nchw(self, pool, x):
+        """On a CUDA tensor the ``int8_features`` ``max_pool`` kernel (no
+        indices), on a CPU tensor ``F.max_pool2d``."""
+        if x.device.type != "cuda":
+            return super().pool_nchw(pool, x)
+        from repro_torch.kernels.int8_features import ops as feats
+        return feats.max_pool(x, pool.window, pool.stride, pool.padding,
+                              pool.ceil_mode)
+
+    def conv_int(self, layer, q, scale, out=None):
+        """``smm_conv``, then on a CUDA tensor the ``int8_features``
+        epilogue (written into ``out`` where given), on a CPU tensor
+        :func:`_finish`."""
         from repro_torch.kernels.smm_conv import smm_conv_batched
-        if x.device.type == "cuda":
-            from repro_torch.kernels.int8_features import ops as feats
-            with span("codr.features"):
-                xi, x_scale = feats.int8_features(x.to(torch.float32))
-            y = smm_conv_batched(xi, layer.code, stride=layer.stride,
-                                 operands=layer.smm_operands())
-            return feats.epilogue(
-                y, x_scale, layer.scale,
-                None if layer.bias is None else layer.bias_device,
-                relu=layer.activation == "relu")
-        xi, x_scale = _int_activations(x)
-        scale = float(np.asarray(layer.code.scale)) * x_scale
-        y = smm_conv_batched(xi.permute(0, 3, 1, 2).contiguous(), layer.code,
-                             stride=layer.stride,
+        y = smm_conv_batched(q, layer.code, stride=layer.stride,
                              operands=layer.smm_operands())
-        return _finish(layer, y.permute(0, 2, 3, 1) * scale)
+        if q.device.type == "cuda":
+            from repro_torch.kernels.int8_features import ops as feats
+            return feats.epilogue(
+                y, scale, layer.scale,
+                None if layer.bias is None else layer.bias_device,
+                relu=layer.activation == "relu", out=out)
+        scale = float(np.asarray(layer.code.scale)) * scale
+        return _into(_finish(layer, y.permute(0, 2, 3, 1) * scale), out)
+
+
+def _into(y: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
+    """NHWC ``y``, or written into NCHW ``out`` and returned as its NHWC
+    view."""
+    if out is None:
+        return y
+    out.copy_(y.permute(0, 3, 1, 2))
+    return out.permute(0, 2, 3, 1)
 
 
 class CodrMatmulBackend(Backend):  # codrlint: disable=capability-consistency — 'codr_matmul' keys the port's own registry, separate from repro.core.backends'

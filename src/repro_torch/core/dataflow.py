@@ -16,7 +16,7 @@ import math
 
 __all__ = ["ConvShape", "TilingConfig", "CODR_TILING", "UCNN_TILING",
            "SCNN_TILING", "AccessCounts", "codr_accesses", "ucnn_accesses",
-           "scnn_accesses", "codr_tiling"]
+           "scnn_accesses", "codr_tiling", "pool_out"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +52,17 @@ class ConvShape:
     @property
     def macs(self) -> int:
         return self.n_outputs * self.n * self.rk * self.ck
+
+
+def pool_out(n: int, window: int, stride: int, padding: int,
+             ceil_mode: bool) -> int:
+    """A max pooling's output size over ``n`` pixels, as
+    ``F.max_pool2d`` gives it (the port's pooling steps; not in the
+    reference)."""
+    span = n + 2 * padding - window
+    o = (-(-span // stride) if ceil_mode else span // stride) + 1
+    # a window may not start in the right-hand padding
+    return o - 1 if ceil_mode and (o - 1) * stride >= n + padding else o
 
 
 @dataclasses.dataclass(frozen=True)

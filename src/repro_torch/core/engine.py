@@ -13,9 +13,13 @@
   stack, cut into the layer's output-channel groups
   (:func:`channel_groups`) as float32 on the layer's device, for every
   later request.
-* :class:`CodrModel` — chains layers over NHWC batches, flattening at
-  the conv→linear boundary, with dense float32 oracles and per-layer
-  SRAM access estimates.
+* :class:`CodrModel` — runs a sequence of steps over NHWC batches:
+  layers (flattening at the conv→linear boundary), max poolings
+  (:class:`MaxPool2D`) and branch modules (:class:`BranchModule`, an
+  inception module), with dense float32 oracles and per-layer SRAM
+  access estimates.  Zero padding (``CodrConv2D(padding=...)``), pooling
+  and branches go beyond the JAX package's engine, which chains VALID
+  convolutions only; a plain chain of VALID layers is what it was.
 
 Execution goes through the backend registry
 (:mod:`repro_torch.core.backends`).  Layers live on one torch device;
@@ -42,13 +46,14 @@ import torch.nn.functional as F
 
 from repro_torch.core import backends as _backends
 from repro_torch.core import dataflow, rle, ucr
-from repro_torch.core.dataflow import CODR_TILING, ConvShape
+from repro_torch.core.dataflow import CODR_TILING, ConvShape, pool_out
 from repro_torch.core.spans import span
 
 __all__ = [
-    "CHANNEL_GROUPS", "CodrConv2D", "CodrLinear", "CodrModel", "LayerStats",
-    "build_random_model", "channel_groups", "decode_all_tiles",
-    "decode_tile", "full_fp32", "paper_model_shapes", "resolve_device",
+    "BranchModule", "CHANNEL_GROUPS", "CodrConv2D", "CodrLinear",
+    "CodrModel", "LayerStats", "MaxPool2D", "build_random_model",
+    "channel_groups", "decode_all_tiles", "decode_tile", "full_fp32",
+    "paper_model_shapes", "resolve_device",
 ]
 
 # output-channel groups a layer is computed in (fewer where it has fewer
@@ -293,7 +298,9 @@ class _CodrLayer:
 
 
 class CodrConv2D(_CodrLayer):
-    """A conv layer executed from its CoDR code (VALID padding, NHWC).
+    """A conv layer executed from its CoDR code (NHWC): VALID by default,
+    or on a zero border of ``padding`` pixels each side (SAME for an odd
+    kernel at stride 1; beyond the JAX package's engine).
 
     ``w`` is float ``(M, N, RK, CK)`` (OIHW); encoding happens once here.
     """
@@ -301,7 +308,8 @@ class CodrConv2D(_CodrLayer):
     kind = "conv"
 
     def __init__(self, w: np.ndarray, bias: np.ndarray | None = None, *,
-                 stride: int = 1, t_m: int = 4, t_n: int = 4,
+                 stride: int = 1, padding: int = 0, t_m: int = 4,
+                 t_n: int = 4,
                  activation: str | None = None, name: str = "conv",
                  decode_source: str = "bitstream", n_unique: int = 256,
                  rle_params: tuple[int, int, int] | None = None,
@@ -311,7 +319,7 @@ class CodrConv2D(_CodrLayer):
             raise ValueError("conv weights must be (M, N, RK, CK)")
         code = ucr.encode_conv_layer(w, t_m=t_m, t_n=t_n, n_unique=n_unique,
                                      params=rle_params)
-        self.stride = int(stride)
+        self.stride, self.padding = _geometry(stride, padding)
         self._setup(code, w, bias, activation=activation, name=name,
                     decode_source=decode_source, n_unique=n_unique,
                     device=device)
@@ -323,9 +331,9 @@ class CodrConv2D(_CodrLayer):
                   decode_source: str = "bitstream", n_unique: int = 256,
                   device="cuda") -> "CodrConv2D":
         """A layer that executes an existing code (no float weights, so
-        no dense ``reference``)."""
+        no dense ``reference``), VALID."""
         self = cls.__new__(cls)
-        self.stride = int(stride)
+        self.stride, self.padding = _geometry(stride, 0)
         self._setup(code, None, bias, activation=activation, name=name,
                     decode_source=decode_source, n_unique=n_unique,
                     device=device)
@@ -334,13 +342,21 @@ class CodrConv2D(_CodrLayer):
 
     def out_hw(self, ri: int, ci: int) -> tuple[int, int]:
         rk, ck = self.code.shape[2], self.code.shape[3]
-        return ((ri - rk) // self.stride + 1, (ci - ck) // self.stride + 1)
+        p = 2 * self.padding
+        return ((ri + p - rk) // self.stride + 1,
+                (ci + p - ck) // self.stride + 1)
 
     def conv_shape(self, ri: int, ci: int) -> ConvShape:
+        """The layer's geometry on an ``ri`` × ``ci`` input, the input's
+        zero border included."""
         m, n, rk, ck = self.code.shape
-        return ConvShape(m, n, rk, ck, ri, ci, self.stride)
+        p = 2 * self.padding
+        return ConvShape(m, n, rk, ck, ri + p, ci + p, self.stride)
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if self.padding:
+            p = self.padding
+            x = F.pad(x, (0, 0, p, p, p, p))
         with full_fp32():
             y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride)
         return y.permute(0, 2, 3, 1)
@@ -374,6 +390,14 @@ class CodrConv2D(_CodrLayer):
         CPU).  New code names the backend at compile or run time."""
         backend = _backends.get_backend("smm_kernel" if kernel else "smm")
         return backend.conv(self, x)
+
+
+def _geometry(stride, padding) -> tuple[int, int]:
+    stride, padding = int(stride), int(padding)
+    if stride < 1 or padding < 0:
+        raise ValueError(f"stride must be >= 1 and padding >= 0, got "
+                         f"{stride} and {padding}")
+    return stride, padding
 
 
 class CodrLinear(_CodrLayer):
@@ -434,38 +458,175 @@ class CodrLinear(_CodrLayer):
 
 
 # ---------------------------------------------------------------------------
-# model = chained layers
+# steps without weights: pooling and branch modules
+# ---------------------------------------------------------------------------
+
+class MaxPool2D:
+    """A max pooling step over NHWC batches, as ``F.max_pool2d``:
+    ``window`` × ``window`` at ``stride`` (default ``window``), ``padding``
+    pixels each side that never win the max, ``ceil_mode`` rounding the
+    output size up.  Not in the JAX package's engine."""
+
+    kind = "pool"
+
+    def __init__(self, window: int, stride: int | None = None,
+                 padding: int = 0, ceil_mode: bool = False,
+                 name: str = "pool"):
+        self.window = int(window)
+        self.stride = self.window if stride is None else int(stride)
+        self.padding, self.ceil_mode, self.name = int(padding), ceil_mode, name
+        if self.window < 1 or self.stride < 1 or \
+                not 0 <= self.padding <= self.window // 2:
+            raise ValueError(f"pool {name!r}: window {self.window}, stride "
+                             f"{self.stride}, padding {self.padding} (at "
+                             f"most half the window)")
+
+    def out_hw(self, ri: int, ci: int) -> tuple[int, int]:
+        return tuple(pool_out(n, self.window, self.stride, self.padding,
+                              self.ceil_mode) for n in (ri, ci))
+
+    def pool_nchw(self, x: torch.Tensor) -> torch.Tensor:
+        """The pooling of NCHW ``x`` (float, or int8 features held as
+        whole-number float32: a max is exact), contiguous NCHW."""
+        return F.max_pool2d(x, self.window, self.stride, self.padding,
+                            ceil_mode=self.ceil_mode).contiguous()
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC ``x`` → NHWC, the view of NCHW storage."""
+        return self.pool_nchw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class BranchModule:
+    """Parallel branches that read one NHWC input, their outputs
+    concatenated on channels in declared order: an inception module.  A
+    branch is a sequence of :class:`CodrConv2D` and :class:`MaxPool2D`
+    steps that ends with a convolution; every branch gives the same
+    plane.  Not in the JAX package's engine."""
+
+    kind = "module"
+
+    def __init__(self, branches, name: str = "module"):
+        self.name = name
+        self.branches = [list(b) for b in branches]
+        if not self.branches:
+            raise ValueError(f"module {name!r} has no branch")
+        for i, b in enumerate(self.branches):
+            if not b or any(s.kind not in ("conv", "pool") for s in b) \
+                    or b[-1].kind != "conv":
+                raise ValueError(f"module {name!r} branch {i}: convolutions "
+                                 f"and poolings that end with a convolution")
+
+    @property
+    def layers(self) -> list:
+        return [s for b in self.branches for s in b if s.kind == "conv"]
+
+    @property
+    def out_channels(self) -> int:
+        return sum(b[-1].code.shape[0] for b in self.branches)
+
+    def branch_kind(self, i: int) -> str:
+        """``"pool"`` for a branch that pools, else its last kernel's size
+        (``"1x1"``, ``"3x3"``, ``"5x5"``)."""
+        b = self.branches[i]
+        if any(s.kind == "pool" for s in b):
+            return "pool"
+        return "x".join(str(k) for k in b[-1].code.shape[2:])
+
+    def branch_span(self, i: int):
+        return span("codr.branch", module=self.name, index=i,
+                    kind=self.branch_kind(i))
+
+    def out_hw(self, ri: int, ci: int) -> tuple[int, int]:
+        planes = set()
+        for b in self.branches:
+            hw = (ri, ci)
+            for s in b:
+                hw = s.out_hw(*hw)
+            planes.add(hw)
+        if len(planes) != 1:
+            raise ValueError(f"module {self.name!r}: the branches give the "
+                             f"planes {sorted(planes)} on a {ri}x{ci} input")
+        return planes.pop()
+
+
+# ---------------------------------------------------------------------------
+# model = a sequence of steps
 # ---------------------------------------------------------------------------
 
 class CodrModel:
-    """A stack of CoDR layers on one device, with dense float32 oracles.
+    """A sequence of steps on one device — CoDR layers, max poolings and
+    branch modules, given as ``layers`` and kept as ``steps`` — with dense
+    float32 oracles.  ``layers`` lists every layer in declared order, the
+    modules' branches included.
 
     ``run`` executes from the RLE bitstreams (decoded on first dispatch);
     ``reference`` runs the original float weights, ``quantized_reference``
     the dequantized decoded ones.
     """
 
-    def __init__(self, layers: Sequence[CodrConv2D | CodrLinear]):
-        self.layers = list(layers)
+    def __init__(self, layers: Sequence):
+        self.steps = list(layers)
+        self.layers = [l for s in self.steps
+                       for l in (s.layers if s.kind == "module"
+                                 else [] if s.kind == "pool" else [s])]
         if not self.layers:
             raise ValueError("CodrModel needs at least one layer")
         devices = {l.device for l in self.layers}
         if len(devices) != 1:
             raise ValueError(f"layers live on several devices: {devices}")
         self.device = self.layers[0].device
+        self._index = {id(l): i for i, l in enumerate(self.layers)}
 
     def as_input(self, batch) -> torch.Tensor:
         """A batch (array or tensor) as float32 on the model's device."""
         return torch.as_tensor(batch, dtype=torch.float32, device=self.device)
 
-    def _chain(self, x: torch.Tensor, step) -> torch.Tensor:
-        for i, layer in enumerate(self.layers):
-            if layer.kind == "linear" and x.dim() > 2:
-                x = x.reshape(x.shape[0], -1)
-            with span("codr.layer", name=layer.name, index=i,
-                      kind=layer.kind):
-                x = step(layer, x)
+    def _chain(self, x: torch.Tensor, step, lane=None) -> torch.Tensor:
+        """``x`` through the steps: ``step(layer, x)`` a layer; a pooling
+        and a module through ``lane`` (a backend: its ``pool_nchw`` and
+        ``module``) where given, else on the float path
+        (:meth:`run_pool`, :meth:`run_module`)."""
+        for s in self.steps:
+            if s.kind == "pool":
+                x = self.run_pool(s, x, lane)
+            elif s.kind == "module":
+                with span("codr.module", name=s.name):
+                    x = (lane.module(self, s, x) if lane is not None
+                         else self.run_module(s, x, step))
+            else:
+                if s.kind == "linear" and x.dim() > 2:
+                    x = x.reshape(x.shape[0], -1)
+                x = self.run_layer(s, x, step)
         return x
+
+    def run_layer(self, layer, x: torch.Tensor, step) -> torch.Tensor:
+        with span("codr.layer", name=layer.name,
+                  index=self._index[id(layer)], kind=layer.kind):
+            return step(layer, x)
+
+    @staticmethod
+    def run_pool(pool: MaxPool2D, x: torch.Tensor, lane=None
+                 ) -> torch.Tensor:
+        """A pooling of NHWC ``x``: ``lane.pool_nchw`` where a lane is
+        given, else :meth:`MaxPool2D.pool_nchw`."""
+        with span("codr.pool", window=pool.window, stride=pool.stride):
+            h = x.permute(0, 3, 1, 2)
+            h = pool.pool_nchw(h) if lane is None else lane.pool_nchw(pool, h)
+            return h.permute(0, 2, 3, 1)
+
+    def run_module(self, mod: BranchModule, x: torch.Tensor, step,
+                   lane=None) -> torch.Tensor:
+        """A module on the float path: each branch's steps in turn on
+        ``x``, the outputs concatenated on channels."""
+        outs = []
+        for i, branch in enumerate(mod.branches):
+            with mod.branch_span(i):
+                h = x
+                for s in branch:
+                    h = (self.run_pool(s, h, lane) if s.kind == "pool"
+                         else self.run_layer(s, h, step))
+                outs.append(h)
+        return torch.cat(outs, dim=-1)
 
     def __call__(self, batch, *,
                  backend: str | _backends.Backend = "tiled") -> torch.Tensor:
@@ -502,24 +663,45 @@ class CodrModel:
         n = sum(l.code.n_weights for l in self.layers)
         return self.total_bits() / max(n, 1)
 
+    def layer_shapes(self, input_hw: tuple[int, int]
+                     ) -> list[tuple[object, ConvShape]]:
+        """``(layer, ConvShape)`` of every layer in :attr:`layers` order
+        for one sample of spatial size ``input_hw``, tracking the plane
+        through the steps: a conv's input border included, a module's
+        branches each from the module's input, a linear layer a 1×1 conv
+        on a 1×1 feature map."""
+        out: list = []
+
+        def walk(steps, hw):
+            for s in steps:
+                if s.kind == "pool":
+                    hw = s.out_hw(*hw)
+                elif s.kind == "module":
+                    for b in s.branches:
+                        walk(b, hw)
+                    hw = s.out_hw(*hw)
+                elif s.kind == "conv":
+                    out.append((s, s.conv_shape(*hw)))
+                    hw = s.out_hw(*hw)
+                else:
+                    m, n = s.code.shape[0], s.code.shape[1]
+                    out.append((s, ConvShape(m, n, 1, 1, 1, 1, 1)))
+            return hw
+
+        walk(self.steps, tuple(input_hw))
+        return out
+
     def sram_report(self, input_hw: tuple[int, int],
                     cfg: dataflow.TilingConfig = CODR_TILING,
                     per_layer_tiling: bool = False
                     ) -> list[tuple[str, dataflow.AccessCounts]]:
         """Per-layer CoDR SRAM access estimates for one sample, tracking
-        spatial dims through the conv stack (linear = 1×1 conv on a 1×1
-        feature map).  ``per_layer_tiling`` counts each layer under its
-        own effective encode tile geometry."""
-        ri, ci = input_hw
+        spatial dims through the steps (:meth:`layer_shapes`).
+        ``per_layer_tiling`` counts each layer under its own effective
+        encode tile geometry."""
         out = []
-        for layer in self.layers:
+        for layer, shape in self.layer_shapes(input_hw):
             st = layer.stats()
-            if layer.kind == "conv":
-                shape = layer.conv_shape(ri, ci)
-                ri, ci = layer.out_hw(ri, ci)
-            else:
-                m, n = layer.code.shape[0], layer.code.shape[1]
-                shape = ConvShape(m, n, 1, 1, 1, 1, 1)
             tiling = dataflow.codr_tiling(st.t_m, st.t_n, base=cfg) \
                 if per_layer_tiling else cfg
             out.append((layer.name, dataflow.codr_accesses(

@@ -8,12 +8,16 @@ Stamps come from ``time.time_ns()``, the clock the profiler's host
 events are given in, so a span can be laid over a trace by host time.
 Spans make no profiler event of their own.
 
-The CNN request path carries four: ``codr.run`` (``CompiledModel.run``),
-``codr.layer`` (each step of ``CodrModel._chain``), ``codr.features``
-(the int8 feature path: the ``int8_features`` kernels' launches on the
-card, ``backends._int_activations`` on the host paths) and
-``codr.host_read`` (each of ``_int_activations``' two reads of a scalar
-to the host; the card's path reads none).  Read them after profiling::
+The CNN request path carries seven: ``codr.run`` (``CompiledModel.run``),
+``codr.layer`` (each layer, attrs ``name``, ``index``, ``kind``),
+``codr.module`` (each branch module, attr ``name``), ``codr.branch``
+(each of a module's branches, attrs ``module``, ``index`` and ``kind``:
+``1x1``, ``3x3``, ``5x5`` or ``pool``), ``codr.pool`` (each max
+pooling, attrs ``window``, ``stride``), ``codr.features`` (the int8
+feature path: the ``int8_features`` kernels' launches on the card,
+``backends._int_activations`` on the host paths) and ``codr.host_read``
+(each of ``_int_activations``' two reads of a scalar to the host; the
+card's path reads none).  Read them after profiling::
 
     with torch.profiler.profile(...):
         model.run(x)

@@ -18,7 +18,10 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "load_library", "log_path"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "load_library", "log_path",
+           "stream_handle"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -81,3 +84,10 @@ def load_library(source: pathlib.Path) -> ctypes.CDLL:
             if lib not in _loaded:
                 _loaded[lib] = ctypes.CDLL(str(lib))
             return _loaded[lib]
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, which a launch takes:
+    what ``torch.cuda.current_stream(device).cuda_stream`` gives, without a
+    ``Stream`` object built for every launch (host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

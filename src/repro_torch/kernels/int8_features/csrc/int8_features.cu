@@ -23,10 +23,23 @@
 //             (a block's first layer: transposed through shared memory).
 //             With scale 1 the map returns x itself, so the exact case
 //             needs no branch.
+//   quantize_pad  the same numbers from NCHW storage into the interior of
+//             a plane with a zero border of `pad` pixels (the SAME
+//             padding of the next convolution), border written too: a
+//             row (b, channel) a blockIdx.y step.
+//   max_pool the lane's max pooling of NCHW storage (int8 features held as
+//             whole-number float32, or the float32 output of a module):
+//             a block a few planes at a time, staged in shared memory
+//             (planes of at most 12288 values), a thread an output
+//             column; the window's pixels outside the plane skipped
+//             (padding never wins), a NaN kept, as torch's max pooling
+//             keeps it; the window's first maximum wins.  No indices.
 //   epilogue one pass over smm_conv's NCHW output (its channel axis may be
 //             padded to whole t_m tiles): y * (float)(layer scale * scale)
 //             (the product in double, as the host computed it), + bias,
-//             ReLU; written NCHW, which the caller views as NHWC.
+//             ReLU; written NCHW, which the caller views as NHWC, into
+//             the first m of each image's m_out channels (m_out > m: a
+//             branch's channel slice of a concatenated output).
 //
 // The numbers are those of repro.core.backends._int_activations: the
 // scale is the correctly rounded amax / 127 (__fdiv_rn), rint rounds half
@@ -52,6 +65,7 @@ constexpr int kThreads = 256;
 constexpr int kTileC = 32;         // channels a transpose tile
 constexpr int kTileElems = 1024;   // elements a transpose tile
 constexpr int kPer = kTileElems / kThreads;   // of them a thread
+constexpr int kPoolSmemFloats = 12288;        // planes max_pool stages
 
 // accumulator words: max |x| as bits, "some element not whole", blocks done
 constexpr int kAmax = 0, kNotWhole = 1, kDone = 2;
@@ -194,6 +208,122 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// x NCHW storage, rows (b, channel) of h x w -> out rows of (h + 2 pad) x
+// (w + 2 pad): the interior quantized, the border zero
+__global__ void __launch_bounds__(kThreads)
+    int8_features_quantize_pad_kernel(const float* __restrict__ x,
+                                      const float* __restrict__ scale,
+                                      float* __restrict__ out,
+                                      long long rows, int h, int w, int pad) {
+  const float s = *scale;
+  const int wp = w + 2 * pad, pp = (h + 2 * pad) * wp;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float* src = x + r * h * w;
+    float* dst = out + r * pp;
+    for (int j = blockIdx.x * kThreads + threadIdx.x; j < pp;
+         j += gridDim.x * kThreads) {
+      const int i = j / wp - pad, k = j % wp - pad;
+      dst[j] = (i >= 0 && i < h && k >= 0 && k < w)
+                   ? quant(__ldcs(src + i * w + k), s)
+                   : 0.0f;
+    }
+  }
+}
+
+// torch's max pooling's rule: a NaN wins, else the first maximum
+__device__ __forceinline__ float pool_max(float m, float v) {
+  return (v > m || isnan(v)) ? v : m;
+}
+
+// the max of row y of a plane over the columns [x0, x0 + k) that lie in
+// it; -inf for a row outside the plane (the padding never wins)
+template <int K>
+__device__ __forceinline__ float row_max(const float* pl, int h, int w,
+                                         int k, int y, int x0) {
+  float m = __int_as_float(0xff800000);   // -inf
+  if (y < 0 || y >= h) return m;
+#pragma unroll
+  for (int dx = 0; dx < (K > 0 ? K : k); ++dx) {
+    const int c = x0 + dx;
+    if (c >= 0 && c < w) m = pool_max(m, pl[y * w + c]);
+  }
+  return m;
+}
+
+// x NCHW storage, rows (b, channel) of h x w -> out rows of ho x wo: a
+// block `per` consecutive planes at a time, read into shared memory
+// (16-byte loads where the planes line up; kSmem false: a plane past
+// kPoolSmemFloats, per = 1, read where it lies); a thread an output
+// column of a plane, down its rows (no division an output).  K: the
+// window, 0 for any (then k).
+template <int K, bool kSmem>
+__global__ void __launch_bounds__(kThreads)
+    int8_features_max_pool_kernel(const float* __restrict__ x,
+                                  float* __restrict__ out, long long rows,
+                                  int h, int w, int ho, int wo, int k,
+                                  int stride, int pad, int per) {
+  extern __shared__ float4 smem4[];
+  const float* planes = reinterpret_cast<const float*>(smem4);
+  const int p = h * w, po = ho * wo;
+  const bool vec =
+      (p & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  for (long long r0 = (long long)blockIdx.x * per; r0 < rows;
+       r0 += (long long)gridDim.x * per) {
+    const int n = (int)min((long long)per, rows - r0);
+    const float* src = x + r0 * p;
+    if (kSmem) {
+      __syncthreads();   // every window of the last planes is read
+      if (vec) {
+        const float4* s4 = reinterpret_cast<const float4*>(src);
+        for (int i = threadIdx.x; i < n * p / 4; i += kThreads)
+          smem4[i] = __ldcs(s4 + i);
+      } else {
+        for (int i = threadIdx.x; i < n * p; i += kThreads)
+          reinterpret_cast<float*>(smem4)[i] = __ldcs(src + i);
+      }
+      __syncthreads();
+    }
+    for (int t = threadIdx.x; t < n * wo; t += kThreads) {
+      const int q = t / wo, ox = t - q * wo, x0 = ox * stride - pad;
+      const float* pl = (kSmem ? planes : src) + q * p;
+      float* dst = out + (r0 + q) * po + ox;
+      if (K == 3 && stride <= 3) {
+        // a window's three row maxima, slid down the column: each row's
+        // maximum taken once (rows in order, so the first maximum and a
+        // NaN win as in a row-major scan)
+        float a = row_max<3>(pl, h, w, 3, -pad, x0);
+        float b = row_max<3>(pl, h, w, 3, 1 - pad, x0);
+        float c = row_max<3>(pl, h, w, 3, 2 - pad, x0);
+        for (int oy = 0; oy < ho; ++oy) {
+          if (oy > 0) {
+            const int y0 = oy * stride - pad;
+            if (stride == 1) {
+              a = b;
+              b = c;
+            } else if (stride == 2) {
+              a = c;
+              b = row_max<3>(pl, h, w, 3, y0 + 1, x0);
+            } else {
+              a = row_max<3>(pl, h, w, 3, y0, x0);
+              b = row_max<3>(pl, h, w, 3, y0 + 1, x0);
+            }
+            c = row_max<3>(pl, h, w, 3, y0 + 2, x0);
+          }
+          dst[oy * wo] = pool_max(pool_max(a, b), c);
+        }
+      } else {
+        for (int oy = 0; oy < ho; ++oy) {
+          float m = __int_as_float(0xff800000);   // -inf
+          for (int dy = 0; dy < k; ++dy)
+            m = pool_max(m, row_max<0>(pl, h, w, k, oy * stride - pad + dy,
+                                       x0));
+          dst[oy * wo] = m;
+        }
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ float finish(float v, float s, const float* bias,
                                         float add, int relu) {
   v = __fmul_rn(v, s);
@@ -202,7 +332,8 @@ __device__ __forceinline__ float finish(float v, float s, const float* bias,
   return (relu && !isnan(v)) ? fmaxf(v, 0.0f) : v;
 }
 
-// y (B, m_in, P) -> out (B, m, P), m <= m_in: a row (b, channel) a
+// y (B, m_in, P) -> out (B, m_out, P), channels 0 .. m - 1, m <= m_in and
+// m <= m_out: a row (b, channel) a
 // blockIdx.y step, blockIdx.x over the row's pixels
 __global__ void __launch_bounds__(kThreads)
     int8_features_epilogue_kernel(const float* __restrict__ y,
@@ -210,14 +341,15 @@ __global__ void __launch_bounds__(kThreads)
                                   double layer_scale,
                                   const float* __restrict__ bias, int relu,
                                   float* __restrict__ out, int m, int m_in,
-                                  long long p, long long rows, int vec) {
+                                  int m_out, long long p, long long rows,
+                                  int vec) {
   const float s = (float)(layer_scale * (double)*x_scale);
   for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
     const long long b = r / m;
     const int ch = (int)(r - b * m);
     const float add = bias == nullptr ? 0.0f : bias[ch];
     const float* src = y + (b * m_in + ch) * p;
-    float* dst = out + r * p;
+    float* dst = out + (b * m_out + ch) * p;
     if (vec) {       // p % 4 == 0 and both buffers 16-byte aligned
       const float4* s4 = reinterpret_cast<const float4*>(src);
       float4* d4 = reinterpret_cast<float4*>(dst);
@@ -285,13 +417,62 @@ extern "C" int int8_features_quantize_launch(const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// y (b, m_in, p) with m <= m_in; bias null or m floats; out (b, m, p)
+// x NCHW storage (rows = b * c planes of h x w); out rows of (h + 2 pad) x
+// (w + 2 pad)
+extern "C" int int8_features_quantize_pad_launch(const float* x,
+                                                 const float* scale,
+                                                 float* out, long long rows,
+                                                 int h, int w, int pad,
+                                                 void* stream) {
+  const long long pp = (long long)(h + 2 * pad) * (w + 2 * pad);
+  const dim3 grid((unsigned)cdiv(pp, 4LL * kThreads),
+                  (unsigned)(rows < 65535 ? rows : 65535));
+  int8_features_quantize_pad_kernel<<<grid, kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      x, scale, out, rows, h, w, pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x NCHW storage (rows = b * c planes of h x w); out rows of ho x wo
+extern "C" int int8_features_max_pool_launch(const float* x, float* out,
+                                             long long rows, int h, int w,
+                                             int ho, int wo, int k,
+                                             int stride, int pad,
+                                             int max_blocks, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long p = (long long)h * w;
+  const bool staged = p <= kPoolSmemFloats;
+  // planes for a thread a column, as shared memory allows
+  const long long fit = staged ? kPoolSmemFloats / p : 1;
+  const long long want = wo < kThreads ? kThreads / wo : 1;
+  const int per = (int)(want < fit ? want : fit);
+  const long long chunks = cdiv(rows, per);
+  const int blocks = (int)(chunks < max_blocks ? chunks : max_blocks);
+  const size_t smem = staged ? sizeof(float) * ((per * p + 3) / 4 * 4) : 0;
+#define INT8_FEATURES_MAX_POOL(K, STAGED)                                 \
+  int8_features_max_pool_kernel<K, STAGED><<<blocks, kThreads, smem, s>>>( \
+      x, out, rows, h, w, ho, wo, k, stride, pad, per)
+  if (k == 3 && staged) {
+    INT8_FEATURES_MAX_POOL(3, true);
+  } else if (k == 3) {
+    INT8_FEATURES_MAX_POOL(3, false);
+  } else if (staged) {
+    INT8_FEATURES_MAX_POOL(0, true);
+  } else {
+    INT8_FEATURES_MAX_POOL(0, false);
+  }
+#undef INT8_FEATURES_MAX_POOL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y (b, m_in, p) with m <= m_in; bias null or m floats; out (b, m_out, p)
+// with m <= m_out, its first m channels written
 extern "C" int int8_features_epilogue_launch(const float* y,
                                              const float* x_scale,
                                              double layer_scale,
                                              const float* bias, int relu,
                                              float* out, long long b, int m,
-                                             int m_in, long long p,
+                                             int m_in, int m_out, long long p,
                                              void* stream) {
   const long long rows = b * m;
   const int vec = p % 4 == 0 &&
@@ -302,7 +483,8 @@ extern "C" int int8_features_epilogue_launch(const float* y,
                   (unsigned)(rows < 65535 ? rows : 65535));
   int8_features_epilogue_kernel<<<grid, kThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
-      y, x_scale, layer_scale, bias, relu, out, m, m_in, p, rows, vec);
+      y, x_scale, layer_scale, bias, relu, out, m, m_in, m_out, p, rows,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 

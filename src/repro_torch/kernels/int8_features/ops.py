@@ -14,10 +14,15 @@ back to the host.  Here they are three launches a layer around
   zero for the next launch), then :func:`quantize`, the ``quantize``
   kernel (one pass: the int8 features in the NCHW layout ``smm_conv``
   takes; ``quantize_nhwc`` where ``x`` is NHWC-contiguous, a transpose
-  through shared memory);
+  through shared memory; ``quantize_pad`` where the next convolution
+  pads: the interior of a plane with a zero border, border written too);
+* :func:`max_pool` — the lane's max pooling of NCHW storage (a module's
+  int8 features, the poolings between modules), no indices: the
+  ``max_pool`` kernel, a block a few planes staged in shared memory;
 * :func:`epilogue` — ``smm_conv``'s output times the layer's scale times
   the device scale, bias, ReLU, returned as the NHWC view of NCHW storage
-  that the engine chain hands on.
+  that the engine chain hands on, or written into a channel slice of a
+  larger NCHW output (a branch's part of a concatenation).
 
 All three are bound by bytes: each reads its float32 input once and
 writes its output once.  The numbers are the plain versions' (:mod:`.ref`),
@@ -35,16 +40,20 @@ import pathlib
 
 import torch
 
+from repro_torch.core.dataflow import pool_out
 from repro_torch.kernels import _build
 from repro_torch.kernels.int8_features.ref import (epilogue_plain,
                                                    feature_scale_plain,
+                                                   max_pool_plain,
                                                    quantize_plain)
 
 __all__ = ["IMPLS", "SOURCE", "launches", "launches_by_impl", "load_kernel",
-           "feature_scale", "quantize", "int8_features", "epilogue"]
+           "feature_scale", "quantize", "int8_features", "max_pool",
+           "epilogue"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "int8_features.cu"
-IMPLS = ("stats", "quantize", "quantize_nhwc", "epilogue")
+IMPLS = ("stats", "quantize", "quantize_nhwc", "quantize_pad", "max_pool",
+         "epilogue")
 # blocks of 256 threads an SM for the grid-stride passes (2048 threads)
 _BLOCKS_PER_SM = 8
 _GRID_YZ = 65535
@@ -61,10 +70,16 @@ def load_kernel():
     lib.int8_features_stats_launch.argtypes = [vp, ll, vp, vp, i, vp]
     lib.int8_features_quantize_launch.argtypes = [vp, vp, vp, ll, ll, i, i,
                                                   i, vp]
+    lib.int8_features_quantize_pad_launch.argtypes = [vp, vp, vp, ll, i, i,
+                                                      i, vp]
+    lib.int8_features_max_pool_launch.argtypes = [vp, vp, ll] + [i] * 8 + [
+        vp]
     lib.int8_features_epilogue_launch.argtypes = [vp, vp, ctypes.c_double, vp,
-                                                  i, vp, ll, i, i, ll, vp]
+                                                  i, vp, ll, i, i, i, ll, vp]
     for fn in (lib.int8_features_stats_launch,
                lib.int8_features_quantize_launch,
+               lib.int8_features_quantize_pad_launch,
+               lib.int8_features_max_pool_launch,
                lib.int8_features_epilogue_launch):
         fn.restype = ctypes.c_int
     lib.int8_features_error_string.argtypes = [ctypes.c_int]
@@ -91,6 +106,7 @@ def _accumulator(device: torch.device, stream: int) -> torch.Tensor:
         buf = torch.zeros(4, dtype=torch.int32, device=device)
         _acc[key] = buf
     return buf
+
 
 
 def _launched(impl: str, err: int) -> None:
@@ -137,7 +153,7 @@ def feature_scale(x: torch.Tensor) -> torch.Tensor:
         return feature_scale_plain(x)
     if not _dense(x):
         x = x.contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream_handle(x.device)
     scale = torch.empty(1, dtype=torch.float32, device=x.device)
     _launched("stats", load_kernel().int8_features_stats_launch(
         x.data_ptr(), x.numel(), _accumulator(x.device, stream).data_ptr(),
@@ -145,22 +161,38 @@ def feature_scale(x: torch.Tensor) -> torch.Tensor:
     return scale
 
 
-def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def quantize(x: torch.Tensor, scale: torch.Tensor, pad: int = 0
+             ) -> torch.Tensor:
     """The ``quantize`` kernels: ``clamp(rint(x / scale), -127, 127)`` of
-    NHWC float32 ``x`` as contiguous NCHW ``(B, C, H, W)``
-    (:func:`.ref.quantize_plain`'s numbers).  ``quantize`` where ``x`` is
-    NCHW storage behind an NHWC view, ``quantize_nhwc`` (a transpose
-    through shared memory) where it is NHWC-contiguous; other strides are
-    copied to NHWC-contiguous first.  One launch on a CUDA tensor."""
+    NHWC float32 ``x`` as contiguous NCHW ``(B, C, H + 2 pad, W + 2 pad)``,
+    on a zero border of ``pad`` pixels (:func:`.ref.quantize_plain`'s
+    numbers).  ``quantize`` where ``x`` is NCHW storage behind an NHWC
+    view, ``quantize_nhwc`` (a transpose through shared memory) where it
+    is NHWC-contiguous, ``quantize_pad`` wherever ``pad`` > 0 (from NCHW
+    storage); other strides are copied first.  One launch on a CUDA
+    tensor."""
     _check_x(x)
     if scale.device != x.device or scale.dtype != torch.float32 \
             or scale.shape != (1,):
         raise ValueError(f"scale must be one float32 on {x.device}, got "
                          f"{scale.dtype} {tuple(scale.shape)} on "
                          f"{scale.device}")
+    if pad < 0:
+        raise ValueError(f"pad must be >= 0, got {pad}")
     if _on_cpu(x):
-        return quantize_plain(x, scale)
+        return quantize_plain(x, scale, pad)
     b, h, w, c = x.shape
+    stream = _build.stream_handle(x.device)
+    if pad:
+        if not x.permute(0, 3, 1, 2).is_contiguous():
+            x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        q = torch.empty(b, c, h + 2 * pad, w + 2 * pad, dtype=torch.float32,
+                        device=x.device)
+        _launched("quantize_pad",
+                  load_kernel().int8_features_quantize_pad_launch(
+                      x.data_ptr(), scale.data_ptr(), q.data_ptr(), b * c, h,
+                      w, pad, stream))
+        return q
     nchw = x.permute(0, 3, 1, 2).is_contiguous()
     if not nchw and not x.is_contiguous():
         x = x.contiguous()
@@ -168,7 +200,6 @@ def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"batch {b} and channels {c} too large for the "
                          f"NHWC transpose")
     q = torch.empty(b, c, h, w, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     _launched("quantize" if nchw else "quantize_nhwc",
               load_kernel().int8_features_quantize_launch(
                   x.data_ptr(), scale.data_ptr(), q.data_ptr(), b, h * w, c,
@@ -176,25 +207,55 @@ def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q
 
 
-def int8_features(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def int8_features(x: torch.Tensor, pad: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The 8-bit feature path: ``x`` NHWC ``(B, H, W, C)`` float32 →
     ``(q, scale)``, ``q`` the integer-valued float32 features as
-    contiguous NCHW ``(B, C, H, W)`` and ``scale`` a one-element float32
-    tensor on ``x``'s device (:func:`.ref.int8_features_plain`'s numbers):
-    :func:`feature_scale`, then :func:`quantize`.  On a CUDA tensor two
-    launches and no host sync."""
+    contiguous NCHW ``(B, C, H + 2 pad, W + 2 pad)`` on a zero border of
+    ``pad`` pixels and ``scale`` a one-element float32 tensor on ``x``'s
+    device (:func:`.ref.int8_features_plain`'s numbers; the border changes
+    neither): :func:`feature_scale`, then :func:`quantize`.  On a CUDA
+    tensor two launches and no host sync."""
     scale = feature_scale(x)
-    return quantize(x, scale), scale
+    return quantize(x, scale, pad), scale
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
+             ceil_mode: bool = False) -> torch.Tensor:
+    """Max pooling of NCHW float32 ``x`` (any strides; NCHW storage is
+    read as it is, other strides are copied first) → contiguous NCHW, as
+    ``F.max_pool2d`` (:func:`.ref.max_pool_plain`'s numbers: a max is
+    exact).  One launch on a CUDA tensor."""
+    if x.dtype != torch.float32 or x.dim() != 4 or x.numel() == 0:
+        raise ValueError(f"x must be non-empty 4-D torch.float32, got "
+                         f"{x.dtype} of shape {tuple(x.shape)}")
+    if window < 1 or stride < 1 or not 0 <= padding <= window // 2:
+        raise ValueError(f"window {window}, stride {stride}, padding "
+                         f"{padding} (at most half the window)")
+    if _on_cpu(x):
+        return max_pool_plain(x, window, stride, padding, ceil_mode)
+    b, c, h, w = x.shape
+    x = x.contiguous()
+    ho, wo = (pool_out(n, window, stride, padding, ceil_mode)
+              for n in (h, w))
+    out = torch.empty(b, c, ho, wo, dtype=torch.float32, device=x.device)
+    stream = _build.stream_handle(x.device)
+    _launched("max_pool", load_kernel().int8_features_max_pool_launch(
+        x.data_ptr(), out.data_ptr(), b * c, h, w, ho, wo, window, stride,
+        padding, _max_blocks(x.device.index), stream))
+    return out
 
 
 def epilogue(y: torch.Tensor, x_scale: torch.Tensor, layer_scale: float,
-             bias: torch.Tensor | None = None, *,
-             relu: bool = False) -> torch.Tensor:
+             bias: torch.Tensor | None = None, *, relu: bool = False,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """``smm_conv``'s accumulators ``y`` NCHW ``(B, M, RO, CO)`` (a channel
     slice of a padded output is fine) → the layer's output NHWC ``(B, RO,
     CO, M)``, NCHW storage: ``y · float32(layer_scale · x_scale)``
     (+ ``bias``, ``(M,)`` float32), ReLU if ``relu``
-    (:func:`.ref.epilogue_plain`'s numbers).  One launch on a CUDA
+    (:func:`.ref.epilogue_plain`'s numbers).  ``out``, NCHW ``(B, M, RO,
+    CO)`` with whole channel planes (a channel slice of a larger output),
+    takes the result in place of a new tensor.  One launch on a CUDA
     tensor."""
     if y.dtype != torch.float32 or y.dim() != 4:
         raise ValueError(f"y must be 4-D torch.float32, got {y.dtype} of "
@@ -208,20 +269,42 @@ def epilogue(y: torch.Tensor, x_scale: torch.Tensor, layer_scale: float,
         if t.dtype != torch.float32 or t.shape != (n,):
             raise ValueError(f"{name} must be torch.float32 of shape "
                              f"({n},), got {t.dtype} {tuple(t.shape)}")
+    if out is not None and (out.dtype != torch.float32
+                            or out.shape != y.shape
+                            or out.device != y.device):
+        raise ValueError(f"out must be torch.float32 of shape "
+                         f"{tuple(y.shape)} on {y.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
     if _on_cpu(y):
-        return epilogue_plain(y, x_scale, layer_scale, bias, relu)
-    out = torch.empty(b, m, ro, co, dtype=torch.float32, device=y.device)
-    if out.numel() == 0:
+        res = epilogue_plain(y, x_scale, layer_scale, bias, relu)
+        if out is None:
+            return res
+        out.copy_(res.permute(0, 3, 1, 2))
         return out.permute(0, 2, 3, 1)
     p = ro * co
-    m_in = y.stride(0) // p if b > 1 else m   # channels a padded image
-    if y.stride()[1:] != (p, co, 1) or (b > 1 and (y.stride(0) % p
-                                                   or m_in < m)):
-        raise ValueError(f"y must be NCHW with whole channel planes, got "
-                         f"strides {y.stride()}")
-    stream = torch.cuda.current_stream(y.device).cuda_stream
+    m_in, m_out = (_channels_an_image("y", y, m, p),
+                   m if out is None else _channels_an_image("out", out, m, p))
+    if out is None:
+        out = torch.empty(b, m, ro, co, dtype=torch.float32, device=y.device)
+    if out.numel() == 0:
+        return out.permute(0, 2, 3, 1)
+    stream = _build.stream_handle(y.device)
     _launched("epilogue", load_kernel().int8_features_epilogue_launch(
         y.data_ptr(), x_scale.data_ptr(), float(layer_scale),
         None if bias is None else bias.contiguous().data_ptr(),
-        int(bool(relu)), out.data_ptr(), b, m, m_in, p, stream))
+        int(bool(relu)), out.data_ptr(), b, m, m_in, m_out, p, stream))
     return out.permute(0, 2, 3, 1)
+
+
+def _channels_an_image(name: str, t: torch.Tensor, m: int, p: int) -> int:
+    """The channels a batch stride of NCHW ``t`` spans (``m`` where the
+    batch has one image); raises unless its channel planes are whole."""
+    b, _, _, co = t.shape
+    if t.numel() == 0:
+        return m
+    m_img = t.stride(0) // p if b > 1 else m
+    if t.stride()[1:] != (p, co, 1) or (b > 1 and (t.stride(0) % p
+                                                   or m_img < m)):
+        raise ValueError(f"{name} must be NCHW with whole channel planes, "
+                         f"got strides {t.stride()}")
+    return m_img

@@ -8,7 +8,10 @@ kernels are held to on the card.
   ``scale`` = 1 where ``x`` is whole numbers within ±127, else ``amax /
   127`` correctly rounded to float32 (1 where ``amax`` is not > 0); ``q`` =
   ``clamp(round(x / scale), -127, 127)``, round half to even: the numbers
-  of ``repro.core.backends._int_activations``.  Nothing reaches the host.
+  of ``repro.core.backends._int_activations``; a ``pad`` puts the
+  features on a zero border (SAME padding, which the JAX package's engine
+  does not have).  Nothing reaches the host.
+* :func:`max_pool_plain` — ``F.max_pool2d`` (no indices kept).
 * :func:`epilogue_plain` — ``backends._finish(layer, y.permute(0, 2, 3, 1)
   * s)`` with ``s`` = float32(layer scale · scale), the product taken in
   double as the host takes it.
@@ -16,9 +19,10 @@ kernels are held to on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["feature_scale_plain", "quantize_plain", "int8_features_plain",
-           "epilogue_plain"]
+           "max_pool_plain", "epilogue_plain"]
 
 
 def feature_scale_plain(x: torch.Tensor) -> torch.Tensor:
@@ -34,20 +38,31 @@ def feature_scale_plain(x: torch.Tensor) -> torch.Tensor:
     return scale.reshape(1)
 
 
-def quantize_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def quantize_plain(x: torch.Tensor, scale: torch.Tensor, pad: int = 0
+                   ) -> torch.Tensor:
     """``clamp(round(x / scale), -127, 127)`` of NHWC ``x`` as contiguous
-    NCHW ``(B, C, H, W)``."""
-    q = torch.clamp(torch.round(x / scale), -127, 127)
-    return q.permute(0, 3, 1, 2).contiguous()
+    NCHW ``(B, C, H + 2 pad, W + 2 pad)``, on a zero border of ``pad``
+    pixels."""
+    q = torch.clamp(torch.round(x / scale), -127, 127).permute(0, 3, 1, 2)
+    return (F.pad(q, (pad,) * 4) if pad else q).contiguous()
 
 
-def int8_features_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def int8_features_plain(x: torch.Tensor, pad: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x`` NHWC ``(B, H, W, C)`` → ``(q, scale)``: ``q`` the integer-
-    valued float32 features as contiguous NCHW ``(B, C, H, W)``, ``scale``
-    a one-element float32 tensor on ``x``'s device (``x ≈ q · scale``)."""
+    valued float32 features as contiguous NCHW ``(B, C, H + 2 pad, W + 2
+    pad)`` on a zero border, ``scale`` a one-element float32 tensor on
+    ``x``'s device (``x ≈ q · scale``)."""
     x = x.to(torch.float32)
     scale = feature_scale_plain(x)
-    return quantize_plain(x, scale), scale
+    return quantize_plain(x, scale, pad), scale
+
+
+def max_pool_plain(x: torch.Tensor, window: int, stride: int, padding: int,
+                   ceil_mode: bool) -> torch.Tensor:
+    """``F.max_pool2d`` of NCHW ``x``, contiguous NCHW."""
+    return F.max_pool2d(x, window, stride, padding,
+                        ceil_mode=ceil_mode).contiguous()
 
 
 def epilogue_plain(y: torch.Tensor, x_scale: torch.Tensor,

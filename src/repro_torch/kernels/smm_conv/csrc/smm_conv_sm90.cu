@@ -634,7 +634,12 @@ extern "C" int smm_conv_sm90_launch(const float* x, const float* deltas,
   g.kw = ci - co + 1;
   g.taps = g.kh * g.kw;
   g.chunks = cdiv(n_in, 32);
-  const int wm = g.m_out > 64 ? 2 : 1;
+  // two warpgroups along the channels past 64 of them, unless their
+  // stages overflow shared memory (a wide kernel): then one, 512 pixels
+  const int p2 = kWgN + (g.kh - 1) * ci + g.kw - 1;
+  const int wm = g.m_out > 64 && (long long)kStages *
+                     ((g.taps * 2 * 128 * 16 + 2 * p2 * 16 + 127) / 128 *
+                      128) <= kMaxSmem ? 2 : 1;
   const int bm = 64 * wm;
   g.m_pad = cdiv(g.m_out, bm) * bm;
   g.bn = 2 * kWgN / wm;

@@ -151,7 +151,8 @@ def _cdiv(a: int, b: int) -> int:
 def sm90_plan(x_shape, deltas_shape, *, t_m: int, ro: int, co: int) -> dict:
     """Tiles, shared memory and scratch of the sm90 instance at stride 1,
     as ``smm_conv_sm90_launch`` computes them: ``bm`` output channels x
-    ``bn`` pixels a tile (128 x 256 for M > 64, else 64 x 512), a window
+    ``bn`` pixels a tile (128 x 256 for M > 64 where its stages fit shared
+    memory, else 64 x 512), a window
     of ``p`` pixels (pixels linearized over the input width), three
     stages of ``stage_bytes``, the phase-1 buffer ``decode_bytes``, and in
     ``scratch_bytes`` the barrier words, the dense int8 matrix (``m_pad``
@@ -161,13 +162,17 @@ def sm90_plan(x_shape, deltas_shape, *, t_m: int, ro: int, co: int) -> dict:
     m_tiles, _, u_plus = deltas_shape
     kh, kw = ri - ro + 1, ci - co + 1
     taps, m = kh * kw, m_tiles * t_m
-    wm = 2 if m > 64 else 1
-    bm, bn = 64 * wm, 2 * _SM90_WG_N // wm
-    p = bn + (kh - 1) * ci + kw - 1
-    chunks, m_pad = _cdiv(n_in, 32), _cdiv(m, bm) * bm
-    stage_a = taps * 2 * bm * 16
-    stage_bytes = max(_cdiv(stage_a + 2 * p * 16, 128) * 128,
+
+    def stage(wm):
+        p = 2 * _SM90_WG_N // wm + (kh - 1) * ci + kw - 1
+        return p, max(_cdiv(taps * 2 * 64 * wm * 16 + 2 * p * 16, 128) * 128,
                       _SM90_MIN_STAGE)
+    # two warpgroups along the channels past 64, unless their stages
+    # overflow shared memory (a wide kernel, e.g. 5x5 at 96 channels)
+    wm = 2 if m > 64 and _SM90_STAGES * stage(2)[1] <= _SM90_MAX_SMEM else 1
+    bm, bn = 64 * wm, 2 * _SM90_WG_N // wm
+    p, stage_bytes = stage(wm)
+    chunks, m_pad = _cdiv(n_in, 32), _cdiv(m, bm) * bm
     w_bytes = m_pad * chunks * taps * 32
     return dict(bm=bm, bn=bn, p=p, taps=taps, chunks=chunks, m_pad=m_pad,
                 stage_bytes=stage_bytes, smem=_SM90_STAGES * stage_bytes,
@@ -247,6 +252,7 @@ def _sm90_scratch(device: torch.device, stream: int,
     return buf
 
 
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     if t.device != device:
@@ -312,7 +318,7 @@ def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = load_kernel(impl)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream_handle(x.device)
     args = (b, n_in, ri, ci, m_tiles, u_plus, entries.shape[2], t_m, ro, co)
     if impl == "simt":
         err = lib.smm_conv_launch(

@@ -129,6 +129,51 @@ def test_plain_epilogue_equals_finish(bias, relu):
     assert got.permute(0, 3, 1, 2).is_contiguous()
 
 
+@pytest.mark.parametrize("pad", [1, 2])
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_padded_features_are_the_features_on_a_zero_border(kind, pad):
+    """``quantize_plain`` with a border: the unpadded features, zero
+    around them, at the unpadded tensor's scale."""
+    x = torch.from_numpy(_inputs(kind, (2, 5, 7, 3), seed=pad))
+    q, s = ref.int8_features_plain(x)
+    qp = ref.quantize_plain(x, s, pad)
+    assert qp.is_contiguous() and qp.shape == (2, 3, 5 + 2 * pad, 7 + 2 * pad)
+    assert torch.equal(qp, torch.nn.functional.pad(q, (pad,) * 4))
+    assert torch.equal(ops.quantize(x, s, pad), qp)
+
+
+def test_epilogue_into_a_channel_slice_on_cpu():
+    """``out``: the result lands in a channel slice of a larger NCHW
+    buffer, the rest of it untouched, equal to the plain epilogue."""
+    y = torch.randn(2, 6, 3, 4) * 1000
+    layer = _layer(5, True, True)
+    s = torch.tensor([0.25])
+    buf = torch.full((2, 9, 3, 4), 7.0)
+    got = ops.epilogue(y[:, :5], s, 0.5, layer.bias_device, relu=True,
+                       out=buf[:, 2:7])
+    want = ref.epilogue_plain(y[:, :5], s, 0.5, layer.bias_device, True)
+    assert torch.equal(got, want) and torch.equal(buf[:, 2:7],
+                                                  want.permute(0, 3, 1, 2))
+    assert (buf[:, :2] == 7).all() and (buf[:, 7:] == 7).all()
+    with pytest.raises(ValueError, match="out must be"):
+        ops.epilogue(y, s, 0.5, out=buf[:, :5])
+
+
+def test_max_pool_on_cpu_tensors_runs_the_plain_version():
+    x = torch.from_numpy(_inputs("relu_out", (2, 9, 9, 5))).permute(
+        0, 3, 1, 2)
+    before = (ops.launches, dict(ops.launches_by_impl))
+    for args in ((3, 1, 1, False), (3, 2, 0, True), (2, 2, 0, False)):
+        got = ops.max_pool(x, *args)
+        assert torch.equal(got, ref.max_pool_plain(x, *args))
+        assert got.is_contiguous()
+    assert (ops.launches, ops.launches_by_impl) == before
+    with pytest.raises(ValueError, match="at most half"):
+        ops.max_pool(x, 3, 1, 2)
+    with pytest.raises(ValueError, match="float32"):
+        ops.max_pool(x.double(), 3, 1, 1)
+
+
 # -- the wrapper's checks and its CPU route ----------------------------------
 
 def test_wrapper_on_cpu_tensors_runs_the_plain_version():
@@ -375,7 +420,8 @@ def test_cuda_vgg_like_chain_reads_nothing_and_equals_the_reference(
     assert recorded.count("codr.features") == 4
     assert "codr.host_read" not in recorded
     assert {k: ops.launches_by_impl[k] - before[k] for k in ops.IMPLS} == \
-        {"stats": 4, "quantize": 2, "quantize_nhwc": 2, "epilogue": 4}
+        {"stats": 4, "quantize": 2, "quantize_nhwc": 2, "quantize_pad": 0,
+         "max_pool": 0, "epilogue": 4}
     host = chain(lambda mdl, x: mdl.run(x, backend="smm"))
 
     def plain(mdl, x):
@@ -420,3 +466,86 @@ def test_cuda_a_nan_input_still_fails_loudly(cuda_device):
     assert "launched" in proc.stdout, proc.stderr
     assert "no error" not in proc.stdout
     assert proc.returncode != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("shape, pad", [
+    ((2, 5, 7, 3), 1),
+    ((4, 28, 28, 96), 1),   # inception 3a's #3x3 reduce output
+    ((2, 28, 28, 16), 2),   # 3a's #5x5 reduce output
+    ((3, 14, 14, 24), 2),   # 4b's
+    ((1, 1, 1, 1), 2),
+    ((2, 40, 300, 3), 1),   # rows wider than a block
+])
+def test_cuda_padded_features_equal_the_plain_version(shape, pad, kind,
+                                                      cuda_device):
+    """``quantize_pad`` from NCHW storage (an epilogue's output) and from
+    NHWC-contiguous x (copied first): the plain version's features on its
+    zero border, bit for bit, one ``quantize_pad`` launch."""
+    xc = torch.from_numpy(_inputs(kind, shape, seed=sum(shape)))
+    for x in (_nchw_storage(xc.to(cuda_device)), xc.to(cuda_device)):
+        before = dict(ops.launches_by_impl)
+        q, s = ops.int8_features(x, pad)
+        torch.cuda.synchronize()
+        assert {k: ops.launches_by_impl[k] - before[k] for k in ops.IMPLS} \
+            == {k: int(k in ("stats", "quantize_pad")) for k in ops.IMPLS}
+        _both(q.cpu(), s.cpu(), *ref.int8_features_plain(xc, pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("b, m, m_pad, m_out, c0, ro, co", [
+    (2, 7, 8, 20, 5, 5, 6),          # no float4 rows
+    (4, 64, 64, 256, 0, 28, 28),     # 3a's #1x1 slice
+    (4, 32, 32, 256, 224, 28, 28),   # 3a's pool proj, the last slice
+    (3, 48, 48, 512, 400, 14, 14),   # 4a's #5x5
+])
+def test_cuda_epilogue_into_a_channel_slice(b, m, m_pad, m_out, c0, ro, co,
+                                            relu, cuda_device):
+    """The epilogue writes channels ``c0 .. c0 + m`` of an ``m_out``-channel
+    NCHW buffer, bit for bit the plain epilogue, the rest untouched."""
+    rng = np.random.default_rng(m + c0)
+    y = _padded_y(rng, b, m, m_pad, ro, co, cuda_device)
+    layer = _layer(m, True, relu, scale=0.0371)
+    bias = layer.bias_device.to(cuda_device)
+    x_scale = torch.tensor([1.8930412], device=cuda_device)
+    buf = torch.full((b, m_out, ro, co), 7.0, device=cuda_device)
+    got = ops.epilogue(y, x_scale, float(layer.code.scale), bias, relu=relu,
+                       out=buf[:, c0:c0 + m])
+    torch.cuda.synchronize()
+    want = ref.epilogue_plain(y, x_scale, float(layer.code.scale), bias,
+                              relu)
+    assert torch.equal(got, want)
+    rest = torch.cat([buf[:, :c0], buf[:, c0 + m:]], dim=1)
+    assert (rest == 7).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["relu_out", "random", "nan"])
+@pytest.mark.parametrize("shape, args", [
+    ((4, 28, 28, 192), (3, 1, 1, False)),   # inception 3a's pool branch
+    ((4, 28, 28, 480), (3, 2, 0, True)),    # the 3x3/2 pool, 28 -> 14
+    ((2, 14, 14, 512), (3, 1, 1, False)),
+    ((2, 7, 9, 5), (3, 2, 1, True)),
+    ((3, 8, 8, 4), (2, 2, 0, False)),
+    ((2, 113, 113, 3), (3, 2, 1, True)),    # a plane past shared memory
+    ((1, 120, 130, 2), (2, 2, 0, False)),
+])
+def test_cuda_max_pool_equals_the_plain_version(shape, args, kind,
+                                                cuda_device):
+    """The ``max_pool`` kernel on NCHW storage (whole or a channel slice
+    copied first) is ``F.max_pool2d`` bit for bit, a NaN kept; one
+    launch."""
+    xn = _inputs("random" if kind == "nan" else kind, shape, seed=len(args))
+    if kind == "nan":
+        xn[0, 1, 2, 0] = np.nan
+    x = torch.from_numpy(xn).permute(0, 3, 1, 2).contiguous()
+    before = ops.launches_by_impl["max_pool"]
+    got = ops.max_pool(x.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert ops.launches_by_impl["max_pool"] == before + 1
+    want = ref.max_pool_plain(x, *args)
+    assert got.shape == want.shape and got.is_contiguous()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
+                               equal_nan=True)

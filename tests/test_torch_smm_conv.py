@@ -212,7 +212,10 @@ def _stride1_case(rng, m, n, rk, ck, ri, ci, t_m, t_n, b=2, density=0.5):
 
 
 SM90_EMU_SHAPES = SHAPES + [(10, 48, 3, 3, 9, 11, 4, 4),   # partial chunk
-                            (6, 33, 3, 2, 7, 8, 4, 2)]     # 1 channel over
+                            (6, 33, 3, 2, 7, 8, 4, 2),     # 1 channel over
+                            # 5x5 past 64 channels: one warpgroup, two
+                            # 64-row tiles (two overflow shared memory)
+                            (72, 8, 5, 5, 9, 9, 4, 4)]
 
 
 @pytest.mark.parametrize("shape", SM90_EMU_SHAPES)
@@ -285,6 +288,26 @@ def test_pick_impl_routes_vgg16_to_sm90(published):
         # weights not known to fit int8 stay on simt
         assert tops.pick_impl(x_shape, d_shape, int8_weights=False,
                               **kw) == "simt"
+
+
+def test_pick_impl_routes_googlenet_inception_to_sm90():
+    """Every convolution of inception 3a-4b at batch 256 (1×1 at 28² and
+    14² up to 512 channels in, 3×3 and 5×5 on their borders) takes sm90;
+    3b's 5×5 at 96 channels out on one warpgroup of 64-row tiles, whose
+    two-warpgroup stages would overflow shared memory."""
+    from repro_torch.configs.paper_cnns import GOOGLENET_INCEPTION
+    for name in ("3a", "3b", "4a", "4b"):
+        hw, c_in, c1, c3r, c3, c5r, c5, pp = GOOGLENET_INCEPTION[name]
+        for m, n, k in ((c1, c_in, 1), (c3r, c_in, 1), (c3, c3r, 3),
+                        (c5r, c_in, 1), (c5, c5r, 5), (pp, c_in, 1)):
+            ri = hw + k - 1
+            args = ((256, n, ri, ri), (-(-m // 4), n, 17))
+            kw = dict(t_m=4, ro=hw, co=hw)
+            assert tops.sm90_refusal(*args, stride=1, int8_weights=True,
+                                     **kw) is None, (name, m, n, k)
+            plan = tops.sm90_plan(*args, **kw)
+            assert plan["bm"] == (128 if m > 64 and (name, k) != ("3b", 5)
+                                  else 64)
 
 
 def test_pick_impl_routes_strided_layers_to_simt():
@@ -406,6 +429,12 @@ SM90_CASES = [
     (128, 64, 3, 3, 66, 66, 4, 4, 1, 4),
     (256, 128, 3, 3, 30, 30, 4, 4, 1, 1),
     (256, 256, 3, 3, 216, 216, 4, 4, 1, 1),   # conv3_2 on the main path
+    # GoogLeNet inception 3a-4b (their padded planes)
+    (16, 192, 1, 1, 28, 28, 4, 4, 1, 2),      # 3a #5x5 reduce: M = 16
+    (32, 16, 5, 5, 32, 32, 4, 4, 1, 2),       # 3a #5x5: half a chunk
+    (96, 32, 5, 5, 32, 32, 4, 4, 1, 2),       # 3b #5x5: one warpgroup
+    (224, 112, 3, 3, 16, 16, 4, 4, 1, 2),     # 4b #3x3
+    (160, 512, 1, 1, 14, 14, 4, 4, 1, 2),     # 4b #1x1
 ]
 
 

@@ -2,8 +2,8 @@
 program's spans (``repro_torch.core.spans``): every per-layer metric,
 the split of the requests' device-idle time (read, launch, other), a
 table by ``codr.layer`` (host self ms, reads, device ms launched inside
-the layer, of it the int8 feature path's), and what one span costs with
-no profiler running and under one.
+the layer, of it the int8 feature path's), one by ``codr.branch``, and
+what one span costs with no profiler running and under one.
 
     PYTHONPATH=src python3 tools/span_table.py --workload vgg16.b64 \\
         --seed 2147495001 [--seconds 30] [--out spans.json]
@@ -11,7 +11,8 @@ no profiler running and under one.
 on the card (``--device cpu`` runs the benchmark's tiny CPU sizes for a
 try).  Every number is a request's mean over the traced window; the
 spans and the trace are joined by host time only, as the benchmark's
-readers join them.
+readers join them.  For a cell of branch modules (``googlenet.b256``) a
+second table by ``codr.branch``: device ms, of it pooling, launches.
 """
 from __future__ import annotations
 
@@ -109,6 +110,47 @@ def layer_table(run) -> list[dict]:
     return list(rows.values())
 
 
+def branch_table(run) -> list[dict]:
+    """One row a module's branch (``codr.branch``: module, index, kind),
+    in order of first appearance, and one for the operations launched
+    outside every branch (the poolings between modules): the device ms
+    launched inside it, of it the pooling's (``codr.pool``), and its
+    launches, a request's mean."""
+    sp = harness.load_module("metrics", "cnn_host_reads")
+    items, n = sp.in_requests(run, sp.window_spans(run) or [])
+    groups = {name: sp.named(items, name)
+              for name in ("codr.branch", "codr.pool")}
+    if not groups["codr.branch"]:
+        return []
+    starts = {k: [s for s, _, _ in v] for k, v in groups.items()}
+
+    def inside(name, t):
+        i = bisect.bisect_right(starts[name], t) - 1
+        return groups[name][i][2] if i >= 0 and \
+            t <= groups[name][i][1] else None
+    rows: dict = {}
+    reqs = set(run.trace.in_groups("request"))
+    for o in run.trace.ops:
+        t = run.trace.launch_ts.get(o.corr)
+        if o.group not in reqs or t is None:
+            continue
+        br = inside("codr.branch", t)
+        key = ("outside branches" if br is None else
+               f"{br.attrs['module']}/{br.attrs['index']} "
+               f"{br.attrs['kind']}")
+        r = rows.setdefault(key, {"branch": key, "device_ms": 0.0,
+                                  "pool_ms": 0.0, "launches": 0.0})
+        r["device_ms"] += o.end - o.start
+        r["launches"] += 1
+        if inside("codr.pool", t) is not None:
+            r["pool_ms"] += o.end - o.start
+    for r in rows.values():
+        r["device_ms"] /= 1e3 * n
+        r["pool_ms"] /= 1e3 * n
+        r["launches"] /= n
+    return list(rows.values())
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="tools/span_table.py")
     p.add_argument("--workload", required=True)
@@ -138,12 +180,19 @@ def main(argv=None) -> int:
            "idle_ms": ({k: split[k] / 1e3 / n for k in
                         ("read", "launch", "other", "idle")}
                        if split else None),
-           "layers": layer_table(run), "span_cost": span_cost()}
+           "layers": layer_table(run), "branches": branch_table(run),
+           "span_cost": span_cost()}
     print("| layer | host self ms | reads | device ms | features ms |")
     print("| --- | --- | --- | --- | --- |")
     for r in out["layers"]:
         print(f"| {r['layer']} | {r['host_self_ms']:.4f} | {r['reads']:.2f} "
               f"| {r['device_ms']:.4f} | {r['features_ms']:.4f} |")
+    if out["branches"]:
+        print("| branch | device ms | of it pooling | launches |")
+        print("| --- | --- | --- | --- |")
+        for r in out["branches"]:
+            print(f"| {r['branch']} | {r['device_ms']:.4f} | "
+                  f"{r['pool_ms']:.4f} | {r['launches']:.2f} |")
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(out, indent=1))
