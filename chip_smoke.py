@@ -48,17 +48,23 @@ calls:
   round P to bf16 (SDPA, and the plain version so changed) must fail
   that bound.  At the long prompts both instances are timed.
 
-On the CNN path each layer's feature path and epilogue run as the
-``int8_features`` kernels (stats, quantize, epilogue: their launches per
-request held beside ``smm_conv``'s, and each layer's features and
-epilogue held to their plain versions in the layer-by-layer replay);
-``features_phase`` then holds each of them to its plain version at
-``vgg16.b64``'s shapes (batch 64: conv1, and the block-first inputs of
-``quantize_nhwc``) and times it there against its bytes' bound and
-against the host path it replaced; ``inception_features_phase`` does the
-same for the kernels of GoogLeNet's modules at ``googlenet.b256``'s
+On the CNN path each layer's feature path runs as the ``int8_features``
+kernels (stats, quantize) and its epilogue in ``smm_conv`` ``sm90``'s
+store (their launches per request held beside ``smm_conv``'s, with the
+epilogue and without a separate one; in the layer-by-layer replay each
+layer's features and the two-kernel epilogue held to their plain
+versions, the fused call held to ``smm_conv`` then the ``int8_features``
+epilogue and timed beside it and the layer's bound);
+``features_phase`` then holds each ``int8_features`` kernel to its plain
+version at ``vgg16.b64``'s shapes (batch 64: conv1, and the block-first
+inputs of ``quantize_nhwc``) and times it there against its bytes' bound
+and against the host path it replaced; ``inception_features_phase`` does
+the same for the kernels of GoogLeNet's modules at ``googlenet.b256``'s
 shapes (batch 256: ``quantize_pad``, ``max_pool``, the epilogue into a
-channel slice).
+channel slice), and runs inception 3a-4b at their published widths:
+a forward (24 ``sm90`` launches, each with the epilogue, no separate
+one) and each of the 24 layers fused against two kernels, into its
+channel slice, held with ``torch.equal`` and timed.
 
 Right after the CNN path, ``oracle_phase`` holds the codec's scalar
 oracle on that VGG16 model: ``rle.decode_vector`` (one bit-reader field
@@ -536,6 +542,49 @@ def _smm_rule(compiled, batch: int, hw) -> list:
     return rule
 
 
+def _fused_row(label, layer, q, scale, out=None, out_two=None) -> dict:
+    """``layer`` on int8 features ``q`` (its border included) with the
+    epilogue in ``smm_conv``'s store, into ``out`` where given, held with
+    ``torch.equal`` to ``smm_conv`` then the ``int8_features`` epilogue
+    (into ``out_two``), one launch with the epilogue; both timed by CUDA
+    events beside the layer's bound (x float32 in once, the packed
+    operands, the layer's float32 output once)."""
+    import torch
+
+    from repro_torch.kernels.int8_features import ops as feat_ops
+    from repro_torch.kernels.smm_conv import ops
+    kw = dict(stride=layer.stride, operands=layer.smm_operands())
+    epi = dict(layer_scale=layer.scale,
+               bias=None if layer.bias is None else layer.bias_device,
+               relu=layer.activation == "relu")
+
+    def fused():
+        return ops.smm_conv_batched(q, layer.code, x_scale=scale, out=out,
+                                    **kw, **epi)
+
+    def two():
+        return feat_ops.epilogue(ops.smm_conv_batched(q, layer.code, **kw),
+                                 scale, out=out_two, **epi)
+    before = ops.launches_with_epilogue
+    got = fused()
+    if ops.launches_with_epilogue != before + 1:
+        fail(f"{label}: the fused call applied no epilogue in sm90's store")
+    if not torch.equal(got, two()):
+        fail(f"{label}: smm_conv with the epilogue in its store differs "
+             f"from smm_conv then the int8_features epilogue")
+    deltas, entries, _ = layer.smm_operands()
+    b, ro, co, m = got.shape
+    b_ms, b_by = bound(4 * (q.numel() + deltas.numel() + entries.numel()
+                            + b * m * ro * co),
+                       2 * b * layer.stats().n_nonzero * ro * co, INT8_TOPS)
+    row = {"fused_ms": cuda_ms(fused, 5), "two_kernel_ms": cuda_ms(two, 5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    say(f"{label}: with the epilogue fused {row['fused_ms']:.4f} ms, "
+        f"smm_conv + int8_features epilogue {row['two_kernel_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}) [{SMI}]")
+    return row
+
+
 def cnn_path(args) -> dict:
     import numpy as np
     import torch
@@ -568,14 +617,16 @@ def cnn_path(args) -> dict:
         np.float32) for _ in range(n_requests)]
 
     torch.cuda.reset_peak_memory_stats()
-    ops.launches = 0
+    ops.launches = ops.launches_with_epilogue = 0
     ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
     feat_ops.launches = 0
     feat_ops.launches_by_impl.update(dict.fromkeys(feat_ops.IMPLS, 0))
     outs, req_ms, per_request, feat_per_request = [], [], [], []
+    fused_per_request = []
     for x in images:
         before = dict(ops.launches_by_impl)
         feat_before = dict(feat_ops.launches_by_impl)
+        fused_before = ops.launches_with_epilogue
         t0 = time.perf_counter()
         y = compiled.run(x)
         torch.cuda.synchronize()
@@ -584,22 +635,27 @@ def cnn_path(args) -> dict:
                             for i in ops.IMPLS})
         feat_per_request.append({i: feat_ops.launches_by_impl[i]
                                  - feat_before[i] for i in feat_ops.IMPLS})
+        fused_per_request.append(ops.launches_with_epilogue - fused_before)
         outs.append(y)
     launches = ops.launches
     by_impl = dict(ops.launches_by_impl)
-    # the feature path: stats, quantize and epilogue a layer; the first
-    # layer's input is NHWC-contiguous (the transpose), the rest NCHW
-    # storage behind the NHWC view
+    # the feature path: stats and quantize a layer, the epilogue in
+    # smm_conv sm90's store; the first layer's input is NHWC-contiguous
+    # (the transpose), the rest NCHW storage behind the NHWC view
     n_layers = len(spec)
     feat_want = {"stats": n_layers, "quantize": n_layers - 1,
                  "quantize_nhwc": 1, "quantize_pad": 0, "max_pool": 0,
-                 "epilogue": n_layers}
+                 "epilogue": 0}
     say(f"cnn int8_features launches per request {feat_per_request} "
-        f"beside smm_conv's {per_request}; in all {feat_ops.launches} "
+        f"beside smm_conv's {per_request}, {fused_per_request} of them "
+        f"with the epilogue in the store; in all {feat_ops.launches} "
         f"{dict(feat_ops.launches_by_impl)}")
     if any(r != feat_want for r in feat_per_request):
         fail(f"int8_features launches {feat_per_request} per request, "
              f"expected {feat_want}")
+    if any(n != n_layers for n in fused_per_request):
+        fail(f"smm_conv launches with the epilogue {fused_per_request} per "
+             f"request, expected {n_layers}")
     peak = torch.cuda.max_memory_allocated()
     for i, ms in enumerate(req_ms):
         say(f"cnn request {i}: batch {batch}, {ms:.3f} ms"
@@ -715,6 +771,7 @@ def cnn_path(args) -> dict:
                                                        bias, relu)):
             fail(f"cnn {layer.name}: int8_features epilogue differs from "
                  f"the plain version")
+        row.update(_fused_row(f"cnn {layer.name}", layer, xi, s))
         x = compiled.backend.conv(layer, x)
         if not torch.equal(x, yf):
             fail(f"cnn {layer.name}: the layer's kernels, run one by one, "
@@ -777,14 +834,17 @@ def cnn_path(args) -> dict:
                        sum(r["ops"] for r in rows), INT8_TOPS)
     sums = {k: sum(r[k] for r in rows)
             for k in ("ms", "simt_ms", "plain_ms", "library_ms",
-                      "library_tf32_ms")}
+                      "library_tf32_ms", "fused_ms", "two_kernel_ms")}
     say(f"cnn one request's 7 launches: routed {sums['ms']:.4f} ms, simt "
         f"{sums['simt_ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
         f"F.conv2d fp32 {sums['library_ms']:.4f} ms, TF32 "
-        f"{sums['library_tf32_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{sums['library_tf32_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"with the epilogue fused {sums['fused_ms']:.4f} ms, smm_conv + "
+        f"int8_features epilogue {sums['two_kernel_ms']:.4f} ms [{SMI}]")
     return compiled, dict(SMM_KERNEL, launches=launches,
                           launches_by_impl=by_impl,
                 launches_per_request=per_request,
+                launches_with_epilogue_per_request=fused_per_request,
                 int8_features_launches_per_request=feat_per_request,
                 max_abs_err=max_err,
                 **sums, bound_ms=b_ms, bound_by=b_by,
@@ -988,7 +1048,95 @@ def inception_features_phase(args, batch: int = 256) -> dict:
             for k in ("ms", "bound_ms", "plain_ms")}
     say(f"int8_features googlenet.b256 kernels in all {sums['ms']:.4f} ms, "
         f"bound {sums['bound_ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms")
-    return {"batch": batch, "rows": rows, "sum": sums}
+    return {"batch": batch, "rows": rows, "sum": sums,
+            "googlenet": _googlenet_fused(args, batch, g)}
+
+
+def _googlenet_fused(args, batch: int, g) -> dict:
+    """Inception 3a, 3b, the 3×3/2 pool, 4a, 4b at their published widths
+    (Gaussian weights × 0.5 at density 0.4, U = 16, Gaussian biases) on
+    ``smm_kernel``: a forward of ``batch`` module inputs, whose 24
+    ``smm_conv`` launches are all ``sm90`` with the epilogue in the store
+    and no ``int8_features`` epilogue runs; then each layer on int8
+    features (its border included) fused against two kernels, a branch's
+    last layer into its channel slice of the module's output
+    (:func:`_fused_row`)."""
+    import numpy as np
+    import torch
+
+    import repro_torch.api as codr
+    from repro_torch.configs.paper_cnns import GOOGLENET_INCEPTION
+    from repro_torch.kernels.int8_features import ops as feat_ops
+    from repro_torch.kernels.smm_conv import ops
+    rng = np.random.default_rng(args.seed + 7)
+
+    def conv(m, n, k):
+        w = rng.normal(size=(m, n, k, k)).astype(np.float32) * 0.5
+        w[rng.random(w.shape) > 0.4] = 0
+        return codr.LayerSpec.conv(w, rng.normal(size=m).astype(np.float32)
+                                   * 0.5, padding=k // 2, activation="relu")
+    steps = []
+    for name in ("3a", "3b", "4a", "4b"):
+        _, cin, c1, c3r, c3, c5r, c5, pp = GOOGLENET_INCEPTION[name]
+        if name == "4a":
+            steps.append(codr.PoolSpec(3, 2, 0, True))
+        steps.append(codr.ModuleSpec((
+            [conv(c1, cin, 1)], [conv(c3r, cin, 1), conv(c3, c3r, 3)],
+            [conv(c5r, cin, 1), conv(c5, c5r, 5)],
+            [codr.PoolSpec(3, 1, 1), conv(pp, cin, 1)]), name=name))
+    t0 = time.perf_counter()
+    net = codr.compile(codr.ModelSpec(steps), codr.EncodeConfig(n_unique=16),
+                       backend="smm_kernel", device="cuda")
+    encode_s = time.perf_counter() - t0
+    x = torch.relu(torch.randn(batch, 28, 28, 192, device="cuda",
+                               generator=g))
+    net.run(x)                        # decode and pack once
+    torch.cuda.synchronize()
+    before = (dict(ops.launches_by_impl), ops.launches_with_epilogue,
+              feat_ops.launches_by_impl["epilogue"])
+    net.run(x)
+    torch.cuda.synchronize()
+    counts = {"by_impl": {i: ops.launches_by_impl[i] - before[0][i]
+                          for i in ops.IMPLS},
+              "with_epilogue": ops.launches_with_epilogue - before[1],
+              "int8_features_epilogue":
+                  feat_ops.launches_by_impl["epilogue"] - before[2]}
+    say(f"googlenet 3a-4b (encode {encode_s:.1f} s), a request of {batch}: "
+        f"smm_conv {counts['by_impl']}, {counts['with_epilogue']} with the "
+        f"epilogue in the store, int8_features epilogue "
+        f"{counts['int8_features_epilogue']}")
+    if counts != {"by_impl": {"sm90": 24, "simt": 0}, "with_epilogue": 24,
+                  "int8_features_epilogue": 0}:
+        fail(f"googlenet request launches {counts}, expected 24 sm90, all "
+             f"with the epilogue, and no int8_features epilogue")
+    scale = torch.tensor([0.0173], device="cuda")
+    rows = {}
+    for mod in (s for s in net.model.steps if s.kind == "module"):
+        hw, c0 = GOOGLENET_INCEPTION[mod.name][0], 0
+        for i, branch in enumerate(mod.branches):
+            for layer in (s for s in branch if s.kind == "conv"):
+                m, n, k = layer.code.shape[:3]
+                ri = hw + 2 * layer.padding
+                q = torch.randint(-127, 128, (batch, n, ri, ri),
+                                  device="cuda", generator=g).float()
+                outs = [None, None]
+                if layer is branch[-1]:       # into the module's slice
+                    outs = [torch.empty(batch, mod.out_channels, hw, hw,
+                                        device="cuda")[:, c0:c0 + m]
+                            for _ in range(2)]
+                label = f"{mod.name}.{mod.branch_kind(i)}.{k}x{k}.{m}x{n}"
+                rows[label] = _fused_row(
+                    f"googlenet {label} at {ri}^2, batch {batch}", layer, q,
+                    scale, *outs)
+            c0 += branch[-1].code.shape[0]
+    sums = {k: float(np.sum([r[k] for r in rows.values()]))
+            for k in ("fused_ms", "two_kernel_ms", "bound_ms")}
+    say(f"googlenet's 24 layers: with the epilogue fused "
+        f"{sums['fused_ms']:.4f} ms, smm_conv + int8_features epilogue "
+        f"{sums['two_kernel_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+        f"[{SMI}]")
+    return {"encode_s": encode_s, "launches": counts, "rows": rows,
+            "sum": sums}
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,16 @@ nothing useful; the full one is held to the plain version (max-abs-diff
 * ``empty``: returns at once (the launch, host time included);
 * ``phase1``: returns after the grid barrier (decode + conversion);
 * ``noconvert``: phase 1 without converting x;
-* ``nostore``: without the epilogue's stores;
+* ``nostore``: without the epilogue's stores (the raw sums: the copies
+  run without the layer's epilogue operands);
 * ``nomma``: without the ``wgmma``s;
 * ``noload``: without the copies of every item after the first two;
 * ``wm1``: 64 x 512 tiles at every M (the kernel takes 128 x 256 above
   M = 64).
+
+Beside ``full`` (the raw sums) it times ``full_fused``: the same source
+launched with the layer's epilogue in its store (a scale, ReLU), held to
+the plain epilogue of the plain version bit for bit.
 
 Prints one line per shape and writes ``build/probe/smm_conv_probe.json``.
 Without a CUDA device it exits 2 at once.
@@ -31,6 +36,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import functools
 import json
 import pathlib
 import subprocess
@@ -53,8 +59,8 @@ CUTS = {
     "nomma": [("    mma(k % kStages, ch == 0);\n", "")],
     "noload": [("    if (k + kStages - 1 < items)\n      load(",
                 "    if (k + kStages - 1 < items && g.kh < 0)\n      load(")],
-    "wm1": [("  const int wm = g.m_out > 64 ? 2 : 1;\n",
-             "  const int wm = 1;\n")],
+    "wm1": [("  const int wm = g.m_out > 64 && ",
+             "  const int wm = false && ")],
 }
 # (M, N, input side, batch) of the probed layers, 3x3, stride 1
 SHAPES = {"conv1_1": (64, 3, 226, 4), "conv3_2": (256, 256, 216, 4),
@@ -74,7 +80,9 @@ def build(name: str):
     path.write_text(text)
     fn = _build.load_library(path).smm_conv_sm90_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p, ctypes.c_double, ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -94,6 +102,7 @@ def main() -> int:
 
     from repro_torch.core import ucr
     from repro_torch.kernels import _build
+    from repro_torch.kernels.int8_features.ref import epilogue_plain
     from repro_torch.kernels.smm_conv import ops, ref
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -131,13 +140,14 @@ def main() -> int:
         scratch = torch.zeros(plan["scratch_bytes"], dtype=torch.uint8,
                               device="cuda")
         out = torch.empty(b, m, ro, co, device="cuda")
+        x_scale = torch.tensor([0.0173], device="cuda")
         row = {}
         for name, fn in fns.items():
-            def call(fn=fn):
+            def call(fn=fn, epi=(None, 0.0, None, 0, 0, 0)):
                 err = fn(x.data_ptr(), deltas.data_ptr(), entries.data_ptr(),
                          out.data_ptr(), scratch.data_ptr(), scratch.numel(),
                          b, n, hw, hw, deltas.shape[0], deltas.shape[2],
-                         entries.shape[2], 4, ro, co, stream)
+                         entries.shape[2], 4, ro, co, *epi, stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             row[name] = ms(call)
@@ -145,9 +155,15 @@ def main() -> int:
                 want = ref.smm_conv_plain(x, deltas, entries, t_m=4, ro=ro,
                                           co=co)
                 row["full_max_abs_diff"] = float((out - want).abs().max())
-                if row["full_max_abs_diff"] != 0.0:
+                fused = functools.partial(call, epi=(
+                    x_scale.data_ptr(), 0.0421, None, 1, m, m))
+                row["full_fused"] = ms(fused)
+                same = torch.equal(out, epilogue_plain(
+                    want, x_scale, 0.0421, None, True).permute(0, 3, 1, 2))
+                if row["full_max_abs_diff"] != 0.0 or not same:
                     print(f"smm_conv_probe: {label}: full copy vs plain "
-                          f"max-abs-diff {row['full_max_abs_diff']}",
+                          f"max-abs-diff {row['full_max_abs_diff']}, fused "
+                          f"equal to the plain epilogue: {same}",
                           file=sys.stderr)
                     return 1
         result[label] = row

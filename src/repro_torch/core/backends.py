@@ -440,18 +440,22 @@ class SmmKernelBackend(_IntFeatureBackend):  # codrlint: disable=capability-cons
                               pool.ceil_mode)
 
     def conv_int(self, layer, q, scale, out=None):
-        """``smm_conv``, then on a CUDA tensor the ``int8_features``
-        epilogue (written into ``out`` where given), on a CPU tensor
+        """On a CUDA tensor ``smm_conv`` with the layer's epilogue, written
+        into ``out`` where given: on the ``sm90`` instance one launch that
+        applies it in its store, on ``simt`` (strided layers, weights
+        outside int8) ``smm_conv`` then the ``int8_features`` epilogue.
+        On a CPU tensor ``smm_conv``'s plain version, then
         :func:`_finish`."""
         from repro_torch.kernels.smm_conv import smm_conv_batched
+        if q.device.type == "cuda":
+            return smm_conv_batched(
+                q, layer.code, stride=layer.stride,
+                operands=layer.smm_operands(), x_scale=scale,
+                layer_scale=layer.scale,
+                bias=None if layer.bias is None else layer.bias_device,
+                relu=layer.activation == "relu", out=out)
         y = smm_conv_batched(q, layer.code, stride=layer.stride,
                              operands=layer.smm_operands())
-        if q.device.type == "cuda":
-            from repro_torch.kernels.int8_features import ops as feats
-            return feats.epilogue(
-                y, scale, layer.scale,
-                None if layer.bias is None else layer.bias_device,
-                relu=layer.activation == "relu", out=out)
         scale = float(np.asarray(layer.code.scale)) * scale
         return _into(_finish(layer, y.permute(0, 2, 3, 1) * scale), out)
 

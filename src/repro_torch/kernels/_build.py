@@ -3,10 +3,12 @@
 Each kernel is a ``csrc/*.cu`` file with a plain C interface.  At first
 use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/`` at the repository root, and loaded with
-``ctypes`` — no PyTorch headers, so a build takes seconds.  Libraries
-are keyed by a hash of their source and flags: an edited source builds
-anew, an unchanged one is reused.  A missing ``nvcc`` or a failed build
-raises; there is no fallback.
+``ctypes`` — no PyTorch headers, so a build takes seconds.  A source
+may include the kernels' shared headers (:data:`INCLUDE_DIR`) by name.
+Libraries are keyed by a hash of their source, the shared headers it
+includes and the flags: an edited source or header builds anew, an
+unchanged one is reused.  A missing ``nvcc`` or a failed build raises;
+there is no fallback.
 """
 from __future__ import annotations
 
@@ -14,18 +16,22 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "load_library", "log_path",
-           "stream_handle"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "INCLUDE_DIR", "load_library",
+           "log_path", "stream_handle"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
+# headers that more than one kernel includes (``#include "name.cuh"``)
+INCLUDE_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _loaded: dict[pathlib.Path, ctypes.CDLL] = {}   # guarded-by: _lock
@@ -43,9 +49,12 @@ def _nvcc() -> str:
 
 
 def _library_path(source: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    text = source.read_bytes()
+    h = hashlib.sha256(text)
+    for name in _INCLUDE.findall(text):
+        h.update((INCLUDE_DIR / name.decode()).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def log_path(source: pathlib.Path) -> pathlib.Path:
@@ -72,7 +81,8 @@ def load_library(source: pathlib.Path) -> ctypes.CDLL:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o",
+                 str(tmp), str(source)],
                 capture_output=True, text=True)
             lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             if proc.returncode != 0:

@@ -39,7 +39,10 @@
 //             (the product in double, as the host computed it), + bias,
 //             ReLU; written NCHW, which the caller views as NHWC, into
 //             the first m of each image's m_out channels (m_out > m: a
-//             branch's channel slice of a concatenated output).
+//             branch's channel slice of a concatenated output).  The
+//             main path runs it only after smm_conv's simt instance: the
+//             sm90 instance applies the same arithmetic
+//             (../../csrc/layer_epilogue.cuh) in its own store.
 //
 // The numbers are those of repro.core.backends._int_activations: the
 // scale is the correctly rounded amax / 127 (__fdiv_rn), rint rounds half
@@ -58,6 +61,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "layer_epilogue.cuh"   // finish, epilogue_scale
 
 namespace {
 
@@ -324,14 +329,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__device__ __forceinline__ float finish(float v, float s, const float* bias,
-                                        float add, int relu) {
-  v = __fmul_rn(v, s);
-  if (bias != nullptr) v = __fadd_rn(v, add);
-  // torch.relu: NaN stays NaN, else max(v, 0)
-  return (relu && !isnan(v)) ? fmaxf(v, 0.0f) : v;
-}
-
 // y (B, m_in, P) -> out (B, m_out, P), channels 0 .. m - 1, m <= m_in and
 // m <= m_out: a row (b, channel) a
 // blockIdx.y step, blockIdx.x over the row's pixels
@@ -343,7 +340,7 @@ __global__ void __launch_bounds__(kThreads)
                                   float* __restrict__ out, int m, int m_in,
                                   int m_out, long long p, long long rows,
                                   int vec) {
-  const float s = (float)(layer_scale * (double)*x_scale);
+  const float s = epilogue_scale(layer_scale, x_scale);
   for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
     const long long b = r / m;
     const int ch = (int)(r - b * m);

@@ -49,7 +49,7 @@ from repro_torch.kernels.int8_features.ref import (epilogue_plain,
 
 __all__ = ["IMPLS", "SOURCE", "launches", "launches_by_impl", "load_kernel",
            "feature_scale", "quantize", "int8_features", "max_pool",
-           "epilogue"]
+           "epilogue", "check_epilogue", "channels_an_image"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "int8_features.cu"
 IMPLS = ("stats", "quantize", "quantize_nhwc", "quantize_pad", "max_pool",
@@ -261,20 +261,7 @@ def epilogue(y: torch.Tensor, x_scale: torch.Tensor, layer_scale: float,
         raise ValueError(f"y must be 4-D torch.float32, got {y.dtype} of "
                          f"shape {tuple(y.shape)}")
     b, m, ro, co = y.shape
-    checks = [("x_scale", x_scale, 1)] + ([] if bias is None
-                                          else [("bias", bias, m)])
-    for name, t, n in checks:
-        if t.device != y.device:
-            raise ValueError(f"{name} is on {t.device}, y on {y.device}")
-        if t.dtype != torch.float32 or t.shape != (n,):
-            raise ValueError(f"{name} must be torch.float32 of shape "
-                             f"({n},), got {t.dtype} {tuple(t.shape)}")
-    if out is not None and (out.dtype != torch.float32
-                            or out.shape != y.shape
-                            or out.device != y.device):
-        raise ValueError(f"out must be torch.float32 of shape "
-                         f"{tuple(y.shape)} on {y.device}, got {out.dtype} "
-                         f"{tuple(out.shape)} on {out.device}")
+    check_epilogue(tuple(y.shape), y.device, x_scale, bias, out)
     if _on_cpu(y):
         res = epilogue_plain(y, x_scale, layer_scale, bias, relu)
         if out is None:
@@ -282,8 +269,8 @@ def epilogue(y: torch.Tensor, x_scale: torch.Tensor, layer_scale: float,
         out.copy_(res.permute(0, 3, 1, 2))
         return out.permute(0, 2, 3, 1)
     p = ro * co
-    m_in, m_out = (_channels_an_image("y", y, m, p),
-                   m if out is None else _channels_an_image("out", out, m, p))
+    m_in, m_out = (channels_an_image("y", y, m, p),
+                   m if out is None else channels_an_image("out", out, m, p))
     if out is None:
         out = torch.empty(b, m, ro, co, dtype=torch.float32, device=y.device)
     if out.numel() == 0:
@@ -296,7 +283,31 @@ def epilogue(y: torch.Tensor, x_scale: torch.Tensor, layer_scale: float,
     return out.permute(0, 2, 3, 1)
 
 
-def _channels_an_image(name: str, t: torch.Tensor, m: int, p: int) -> int:
+def check_epilogue(shape: tuple, device: torch.device,
+                   x_scale: torch.Tensor, bias: torch.Tensor | None,
+                   out: torch.Tensor | None) -> None:
+    """Raise unless the epilogue's operands fit accumulators ``y`` of NCHW
+    ``shape`` ``(B, M, RO, CO)`` on ``device``: ``x_scale`` one float32,
+    ``bias`` ``(M,)`` float32 or None, ``out`` float32 of ``shape`` or
+    None, all on ``device`` (:func:`epilogue`'s checks, which
+    ``smm_conv``'s fused call makes too)."""
+    m = shape[1]
+    checks = [("x_scale", x_scale, 1)] + ([] if bias is None
+                                          else [("bias", bias, m)])
+    for name, t, n in checks:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, y on {device}")
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError(f"{name} must be torch.float32 of shape "
+                             f"({n},), got {t.dtype} {tuple(t.shape)}")
+    if out is not None and (out.dtype != torch.float32
+                            or out.shape != shape or out.device != device):
+        raise ValueError(f"out must be torch.float32 of shape "
+                         f"{tuple(shape)} on {device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+
+
+def channels_an_image(name: str, t: torch.Tensor, m: int, p: int) -> int:
     """The channels a batch stride of NCHW ``t`` spans (``m`` where the
     batch has one image); raises unless its channel planes are whole."""
     b, _, _, co = t.shape

@@ -12,7 +12,11 @@
 //                                 weights (0-padded)
 //   entries (m_tiles, N, L, 4)    int32 (u, m_local, r, c) per repetition;
 //                                 padding rows are (U, 0, 0, 0)
-//   out     (B, m_tiles*t_m, RO, CO) float32 from int32 sums
+//   out     (B, m_tiles*t_m, RO, CO) float32 from int32 sums; or, with the
+//           layer's epilogue operands (x_scale on the device, the layer
+//           scale, bias or null, relu), the finished layer output: channels
+//           0 .. m_rows - 1 of an NCHW output with m_img channels an image
+//           (a branch's channel slice of a concatenated output)
 //
 // Why the tensor cores give the same numbers.  Weights are int8 (running
 // sums of the Δs) and x is integer-valued, so every product and sum is an
@@ -70,6 +74,15 @@
 //   through shared memory: each warp stages 8 channels x 128 pixels in the
 //   stage its item has finished with and writes each channel's run along
 //   the pixels, 256 contiguous bytes a float2 store.
+// * The layer's epilogue in the store.  Given the epilogue operands, an
+//   instance of its own (kEpi) takes each value int32 -> float32 ->
+//   finish() of ../../csrc/layer_epilogue.cuh (x scale, bias, ReLU: the
+//   int8_features epilogue's arithmetic, one definition for both) as the
+//   accumulators are staged in shared memory, and rows past the layer's
+//   channels are not written.  The separate epilogue pass read the float32
+//   sums back and wrote them again: 6.3 GB of a vgg16.b64 request, 24% of
+//   its device time.  Without the operands the other instance writes the
+//   raw sums of every m_tiles*t_m row, as direct calls take them.
 // * x outside int8.  _int_activations guarantees int8 on the main path,
 //   but a direct call does not, and the wrapper cannot look without a host
 //   sync.  So every converted value (and every decoded weight) is checked
@@ -115,6 +128,8 @@
 
 #include <type_traits>
 
+#include "layer_epilogue.cuh"   // finish, epilogue_scale
+
 namespace {
 
 constexpr int kThreads = 256;   // two warpgroups
@@ -129,7 +144,9 @@ constexpr int kMaxSmem = 232448;
 // the call's geometry, computed on the host (ops.sm90_plan mirrors it)
 struct Geo {
   int n_in, ri, ci, ro, co;
-  int m_out;           // m_tiles * t_m, the output's channels
+  int m_out;           // m_tiles * t_m, the channels the GEMM computes
+  int m_rows;          // of them the channels written (m_out for raw sums)
+  int m_img;           // the output's channels an image (its batch stride)
   int t_m, m_tiles, u_plus, l_max;
   int kh, kw, taps, chunks;
   int m_pad;           // rows of the dense matrix, a multiple of BM
@@ -139,6 +156,14 @@ struct Geo {
   int groups_mt;       // row groups of t_m rows in phase 1
   int stage_a, stage_bytes;
   long long xs_off;    // scratch offset of x in int8: [b][chunk][half][pixel]
+};
+
+// the layer's epilogue in the store (read only by the kEpi instances)
+struct Epi {
+  const float* x_scale;   // one float on the device
+  const float* bias;      // m_rows floats, or null
+  double layer_scale;
+  int relu;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -386,13 +411,15 @@ __device__ void convert_x(const Geo& g, int batch, const float* __restrict__ x,
   }
 }
 
-template <int WM>   // warpgroups along the channels: 2 (BM 128) or 1 (BM 64)
+// WM: warpgroups along the channels, 2 (BM 128) or 1 (BM 64); kEpi: the
+// store applies the layer's epilogue (else it writes the raw sums)
+template <int WM, bool kEpi>
 __global__ void __launch_bounds__(kThreads, 1)
 smm_conv_sm90_kernel(const float* __restrict__ x,
                      const float* __restrict__ deltas,
                      const int* __restrict__ entries, float* __restrict__ out,
                      uint8_t* __restrict__ scratch, const int batch,
-                     const Geo g) {
+                     const Geo g, const Epi epi) {
   constexpr int BM = 64 * WM;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* w = scratch + kHead;
@@ -413,6 +440,9 @@ smm_conv_sm90_kernel(const float* __restrict__ x,
   const int wm = WM == 2 ? wg : 0;    // this warpgroup's 64 channels
   const int wn = WM == 2 ? 0 : wg;    // and 256 pixels of the tile
   if ((int)blockIdx.x >= g.n_tiles) return;
+  // the epilogue's scale, taken once a block
+  float escale = 1.0f;
+  if constexpr (kEpi) escale = epilogue_scale(epi.layer_scale, epi.x_scale);
   const int my_tiles = (g.n_tiles - 1 - (int)blockIdx.x) / gridDim.x + 1;
   const int items = my_tiles * g.chunks;
   const int plane = g.ri * g.ci;
@@ -475,17 +505,37 @@ smm_conv_sm90_kernel(const float* __restrict__ x,
   // the epilogue, through shared memory: element 4 j + 2 i + c of acc is
   // channel 16 warp + lane / 4 + 8 i of the warpgroup's 64 and pixel 8 j +
   // 2 (lane % 4) + c of its 256.  Each warp puts 8 channels x 128 pixels at
-  // a time into its own 4 KB of stage `s` (free once every wgmma of the
+  // a time into its own 4 KB of stage `st` (free once every wgmma of the
   // item is done), then writes each channel's run along the pixels: 256
-  // contiguous bytes a float2 store (pixels at x >= CO are dropped)
-  auto store = [&](int k, int s) {
+  // contiguous bytes a float2 store (pixels at x >= CO are dropped).  The
+  // layer's epilogue (kEpi) is applied as the accumulators are staged,
+  // where a lane's 32 values of a channel are independent work; the
+  // stores stay plain copies (applied in the store loop, behind a runtime
+  // flag, it added 12-31% to a VGG16 layer's time, here 0-5%)
+  auto store = [&](int k, int st) {
     int mt, b, q0;
     tile_of(k, mt, b, q0);
-    float* buf = reinterpret_cast<float*>(smem + s * g.stage_bytes) +
+    float* buf = reinterpret_cast<float*>(smem + st * g.stage_bytes) +
                  (tid / 32) * 8 * kRow;
     const int m0 = mt * BM + wm * 64 + warp * 16;
     const int qw = q0 + wn * kWgN;
-    const bool vec2 = (g.ci % 2 == 0) && (g.co % 2 == 0);
+    const bool vec2 = (g.ci % 2 == 0) && (g.co % 2 == 0) &&
+                      (reinterpret_cast<uintptr_t>(out) & 7u) == 0;
+    // this lane's channels m0 + lane / 4 + 8 i: their bias (none read
+    // past the layer's channels, whose rows are not written)
+    float add[2] = {0.0f, 0.0f};
+    if constexpr (kEpi) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + lane / 4 + 8 * i;
+        if (epi.bias != nullptr && m < g.m_rows) add[i] = epi.bias[m];
+      }
+    }
+    auto value = [&](int a, int i) {
+      const float v = static_cast<float>(a);
+      if constexpr (kEpi) return finish(v, escale, epi.bias, add[i], epi.relu);
+      return v;
+    };
 #pragma unroll
     for (int jh = 0; jh < 2; ++jh) {
       // this lane's pixels of the 128: 2 lane + 64 h (float2 path)
@@ -503,15 +553,15 @@ smm_conv_sm90_kernel(const float* __restrict__ x,
           const int j = 16 * jh + jj;
           *reinterpret_cast<float2*>(buf + (lane / 4) * kRow + 8 * jj +
                                      2 * (lane % 4)) =
-              make_float2(static_cast<float>(acc[4 * j + 2 * i]),
-                          static_cast<float>(acc[4 * j + 2 * i + 1]));
+              make_float2(value(acc[4 * j + 2 * i], i),
+                          value(acc[4 * j + 2 * i + 1], i));
         }
         __syncwarp();
 #pragma unroll 2
         for (int r = 0; r < 8; ++r) {
           const int m = m0 + 8 * i + r;
-          if (m >= g.m_out) break;
-          float* o = out + ((size_t)b * g.m_out + m) * g.ro * g.co;
+          if (m >= g.m_rows) break;
+          float* o = out + ((size_t)b * g.m_img + m) * g.ro * g.co;
           if (vec2) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
@@ -564,13 +614,13 @@ smm_conv_sm90_kernel(const float* __restrict__ x,
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <int WM>
+template <int WM, bool kEpi>
 cudaError_t launch(const float* x, const float* deltas, const int* entries,
                    float* out, void* scratch, int batch, const Geo& g,
-                   cudaStream_t stream) {
+                   const Epi& e, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      smm_conv_sm90_kernel<WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
+      smm_conv_sm90_kernel<WM, kEpi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
   const int smem = kStages * g.stage_bytes;
   // resident blocks for this device and shared-memory size (the queries
@@ -584,7 +634,7 @@ cudaError_t launch(const float* x, const float* deltas, const int* entries,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, smm_conv_sm90_kernel<WM>, kThreads, smem);
+        &occ, smm_conv_sm90_kernel<WM, kEpi>, kThreads, smem);
     if (err != cudaSuccess) return err;
     if (occ < 1) return cudaErrorInvalidConfiguration;
     c_dev = dev;
@@ -594,9 +644,10 @@ cudaError_t launch(const float* x, const float* deltas, const int* entries,
   uint8_t* sc = static_cast<uint8_t*>(scratch);
   int b = batch;
   Geo geo = g;
-  void* args[] = {&x, &deltas, &entries, &out, &sc, &b, &geo};
+  Epi epi = e;
+  void* args[] = {&x, &deltas, &entries, &out, &sc, &b, &geo, &epi};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(smm_conv_sm90_kernel<WM>),
+      reinterpret_cast<const void*>(smm_conv_sm90_kernel<WM, kEpi>),
       dim3(c_blocks), dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -606,15 +657,25 @@ cudaError_t launch(const float* x, const float* deltas, const int* entries,
 
 // stride 1 only (KH = RI - RO + 1, KW = CI - CO + 1); scratch of
 // scratch_bytes, its first 8 bytes zero before the first launch on a
-// stream (the barrier words; every launch leaves them ready for the next)
+// stream (the barrier words; every launch leaves them ready for the next).
+// x_scale null: out (B, m_tiles * t_m, RO, CO) takes the raw sums, and
+// layer_scale, bias, relu, m_rows and m_img are not read.  Else out takes
+// the layer's output in channels 0 .. m_rows - 1 (m_rows <= m_tiles * t_m)
+// of m_img an image (m_img >= m_rows); bias null or m_rows floats.
 extern "C" int smm_conv_sm90_launch(const float* x, const float* deltas,
                                     const int* entries, float* out,
                                     void* scratch, long long scratch_bytes,
                                     int batch, int n_in, int ri, int ci,
                                     int m_tiles, int u_plus, int l_max,
-                                    int t_m, int ro, int co, void* stream) {
+                                    int t_m, int ro, int co,
+                                    const float* x_scale, double layer_scale,
+                                    const float* bias, int relu, int m_rows,
+                                    int m_img, void* stream) {
   if (batch < 1 || n_in < 1 || m_tiles < 1 || t_m < 1 || u_plus < 1 ||
       l_max < 1 || ro < 1 || co < 1 || ro > ri || co > ci)
+    return cudaErrorInvalidValue;
+  if (x_scale != nullptr &&
+      (m_rows < 1 || m_rows > m_tiles * t_m || m_img < m_rows))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(entries) & 15u) != 0 ||
       (reinterpret_cast<uintptr_t>(scratch) & 15u) != 0)
@@ -628,6 +689,8 @@ extern "C" int smm_conv_sm90_launch(const float* x, const float* deltas,
   g.t_m = t_m;
   g.m_tiles = m_tiles;
   g.m_out = m_tiles * t_m;
+  g.m_rows = x_scale != nullptr ? m_rows : g.m_out;
+  g.m_img = x_scale != nullptr ? m_img : g.m_out;
   g.u_plus = u_plus;
   g.l_max = l_max;
   g.kh = ri - ro + 1;
@@ -663,9 +726,16 @@ extern "C" int smm_conv_sm90_launch(const float* x, const float* deltas,
       scratch_bytes < need)
     return cudaErrorInvalidValue;
   g.n_tiles = static_cast<int>(tiles);
+  const Epi e = {x_scale, bias, layer_scale, relu};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wm == 2) return launch<2>(x, deltas, entries, out, scratch, batch, g, s);
-  return launch<1>(x, deltas, entries, out, scratch, batch, g, s);
+  if (x_scale != nullptr) {
+    if (wm == 2)
+      return launch<2, true>(x, deltas, entries, out, scratch, batch, g, e, s);
+    return launch<1, true>(x, deltas, entries, out, scratch, batch, g, e, s);
+  }
+  if (wm == 2)
+    return launch<2, false>(x, deltas, entries, out, scratch, batch, g, e, s);
+  return launch<1, false>(x, deltas, entries, out, scratch, batch, g, e, s);
 }
 
 extern "C" const char* smm_conv_sm90_error_string(int err) {

@@ -24,6 +24,14 @@ TOP/s.  Both instances sum in int32 and equal the plain version exactly.
   cores; every other shape (strided layers such as AlexNet conv1 and
   GoogLeNet conv1, weights outside int8).
 
+With the layer's epilogue operands (the device scale of ``x``, the
+layer's scale, bias, ReLU; an ``out`` that may be a channel slice) a call
+returns the finished layer output, the ``int8_features`` epilogue's
+numbers bit for bit: ``sm90`` applies it in its own store and writes no
+raw sums (:data:`launches_with_epilogue` counts those launches); ``simt``
+has no such store and is followed by the ``int8_features`` epilogue
+launch.  Without them a call returns the raw sums, as before.
+
 The rule is :func:`pick_impl`.  ``impl=`` of :func:`smm_conv_cuda`
 forces one instance (the tests and ``chip_smoke.py`` use it); forcing
 ``"sm90"`` on a shape it does not take raises ``ValueError``.  Nothing
@@ -31,7 +39,8 @@ gives way to another instance or to the plain version: a failed build
 or launch raises.
 
 Dispatch: a CPU tensor runs the plain version
-(:func:`repro_torch.kernels.smm_conv.ref.smm_conv_plain`); a CUDA
+(:func:`repro_torch.kernels.smm_conv.ref.smm_conv_plain`, then
+``epilogue_plain`` where the call has the epilogue operands); a CUDA
 tensor launches a kernel or raises.  :data:`launches` counts kernel
 launches, and only those (one per call); :data:`launches_by_impl`
 splits the same count by instance.
@@ -48,12 +57,14 @@ import torch
 from repro_torch.core.smm import decode_index
 from repro_torch.core.ucr import LayerCode
 from repro_torch.kernels import _build
+from repro_torch.kernels.int8_features import ops as feats
 from repro_torch.kernels.smm_conv.ref import smm_conv_plain
 
 __all__ = ["KERNEL_CAPS", "IMPLS", "SOURCES", "launches", "launches_by_impl",
-           "pack_smm_operands", "smm_operands_on", "sm90_plan",
-           "sm90_refusal", "pick_impl", "load_kernel", "smm_conv_cuda",
-           "smm_conv_packed", "smm_conv_batched", "smm_conv"]
+           "launches_with_epilogue", "pack_smm_operands", "smm_operands_on",
+           "sm90_plan", "sm90_refusal", "pick_impl", "load_kernel",
+           "smm_conv_cuda", "smm_conv_packed", "smm_conv_batched",
+           "smm_conv"]
 
 # Capability facts consumed by the backend registry
 # (repro_torch.core.backends.SmmKernelBackend) — kept next to the kernel
@@ -82,6 +93,7 @@ _GRID_YZ = 65535
 
 launches = 0          # kernel launches since the count was last set to 0
 launches_by_impl = dict.fromkeys(IMPLS, 0)   # the same count, by instance
+launches_with_epilogue = 0   # sm90 launches that applied the epilogue
 
 
 def pack_smm_operands(code: LayerCode, n_in: int
@@ -225,7 +237,9 @@ def load_kernel(impl: str):
                        + [ctypes.c_void_p])
     else:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p, ctypes.c_double, ctypes.c_void_p]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -279,17 +293,80 @@ def _resolve_impl(x_shape, deltas_shape, impl, **kw) -> str:
     return impl
 
 
+def _epilogue_channels(m_out: int, out: torch.Tensor | None) -> int:
+    """The channels a call with the epilogue writes: ``out``'s, where it
+    is NCHW with 1 .. ``m_out`` of them, else all ``m_out`` (and an
+    ``out`` of another shape fails :func:`check_epilogue`)."""
+    if out is not None and out.dim() == 4 and 0 < out.shape[1] <= m_out:
+        return out.shape[1]
+    return m_out
+
+
+def _check_epilogue_args(x_scale, bias, relu, out) -> None:
+    if x_scale is None and (bias is not None or relu or out is not None):
+        raise ValueError("bias, relu and out belong to the layer's "
+                         "epilogue: pass x_scale with them")
+
+
+def _launch(impl: str, x, deltas, entries, y, *, t_m: int, ro: int,
+            co: int, stride: int, epi: tuple) -> None:
+    """One launch of ``impl`` into ``y``; ``epi`` the sm90 launch's
+    epilogue arguments (x_scale, layer_scale, bias, relu, m_rows, m_img;
+    a null x_scale for the raw sums)."""
+    global launches
+    b, n_in, ri, ci = x.shape
+    m_tiles, _, u_plus = deltas.shape
+    lib = load_kernel(impl)
+    stream = _build.stream_handle(x.device)
+    args = (b, n_in, ri, ci, m_tiles, u_plus, entries.shape[2], t_m, ro, co)
+    if impl == "simt":
+        err = lib.smm_conv_launch(
+            x.data_ptr(), deltas.data_ptr(), entries.data_ptr(),
+            y.data_ptr(), *args, stride, stream)
+        what = lib.smm_conv_error_string
+    else:
+        if entries.data_ptr() % 16:
+            raise ValueError("entries must be 16-byte aligned")
+        need = sm90_plan(tuple(x.shape), tuple(deltas.shape), t_m=t_m,
+                         ro=ro, co=co)["scratch_bytes"]
+        scratch = _sm90_scratch(x.device, stream, need)
+        err = lib.smm_conv_sm90_launch(
+            x.data_ptr(), deltas.data_ptr(), entries.data_ptr(),
+            y.data_ptr(), scratch.data_ptr(), scratch.numel(), *args, *epi,
+            stream)
+        what = lib.smm_conv_sm90_error_string
+    if err != 0:
+        raise RuntimeError(f"smm_conv ({impl}) launch failed: CUDA error "
+                           f"{err} ({what(err).decode()})")
+    launches += 1
+    launches_by_impl[impl] += 1
+
+
 def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
                   entries: torch.Tensor, *, t_m: int, ro: int, co: int,
                   stride: int = 1, int8_weights: bool = False,
-                  impl: str | None = None) -> torch.Tensor:
+                  impl: str | None = None,
+                  x_scale: torch.Tensor | None = None,
+                  layer_scale: float = 1.0,
+                  bias: torch.Tensor | None = None, relu: bool = False,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch a CUDA kernel: ``x`` (B, N, RI, CI) float32 on a CUDA
     device → (B, m_tiles·t_m, RO, CO) float32, on the instance
     :func:`pick_impl` names, or ``impl``.  ``int8_weights`` is
     ``meta["int8_weights"]`` of :func:`pack_smm_operands` (False routes
     to simt).  Raises on anything the instance does not take, and when
-    the launch is refused."""
-    global launches
+    the launch is refused.
+
+    With ``x_scale`` (``x``'s scale, one float32 on its device) the call
+    applies the layer's epilogue, ``layer_scale``, ``bias`` and ``relu``
+    as :func:`repro_torch.kernels.int8_features.ops.epilogue` takes them,
+    and returns the layer's output NHWC ``(B, RO, CO, C)``, NCHW storage:
+    ``out``'s (NCHW ``(B, C, RO, CO)``, C at most m_tiles·t_m, whole
+    channel planes: a channel slice of a larger output) or a new tensor
+    of C = m_tiles·t_m channels.  ``sm90`` applies it in its store, one
+    launch and no raw sums (:data:`launches_with_epilogue`); after
+    ``simt`` the ``int8_features`` epilogue runs."""
+    global launches_with_epilogue
     _check("x", x, torch.float32, 4, x.device)
     _check("deltas", deltas, torch.float32, 3, x.device)
     _check("entries", entries, torch.int32, 4, x.device)
@@ -304,6 +381,11 @@ def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
             or (ro - 1) * stride >= ri or (co - 1) * stride >= ci:
         raise ValueError(f"bad geometry: t_m={t_m} ro={ro} co={co} "
                          f"stride={stride} for a {ri}x{ci} input")
+    _check_epilogue_args(x_scale, bias, relu, out)
+    m_out = m_tiles * t_m
+    c = _epilogue_channels(m_out, out)
+    if x_scale is not None:
+        feats.check_epilogue((b, c, ro, co), x.device, x_scale, bias, out)
     impl = _resolve_impl(tuple(x.shape), tuple(deltas.shape), impl, t_m=t_m,
                          ro=ro, co=co, stride=stride,
                          int8_weights=int8_weights)
@@ -313,71 +395,96 @@ def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
     if impl == "simt" and (b > _GRID_YZ or m_tiles > _GRID_YZ):
         raise ValueError(f"batch {b} and m_tiles {m_tiles} must be <= "
                          f"{_GRID_YZ}")
-    out = torch.empty(b, m_tiles * t_m, ro, co, dtype=torch.float32,
-                      device=x.device)
-    if out.numel() == 0:
-        return out
-    lib = load_kernel(impl)
-    stream = _build.stream_handle(x.device)
-    args = (b, n_in, ri, ci, m_tiles, u_plus, entries.shape[2], t_m, ro, co)
-    if impl == "simt":
-        err = lib.smm_conv_launch(
-            x.data_ptr(), deltas.data_ptr(), entries.data_ptr(),
-            out.data_ptr(), *args, stride, stream)
-        what = lib.smm_conv_error_string
+    fused = x_scale is not None and impl == "sm90"
+    if fused:
+        bias = None if bias is None else bias.contiguous()
+        if out is None:
+            out = torch.empty(b, c, ro, co, dtype=torch.float32,
+                              device=x.device)
+        y, m_img = out, feats.channels_an_image("out", out, c, ro * co)
     else:
-        if entries.data_ptr() % 16:
-            raise ValueError("entries must be 16-byte aligned")
-        need = sm90_plan(tuple(x.shape), tuple(deltas.shape), t_m=t_m,
-                         ro=ro, co=co)["scratch_bytes"]
-        scratch = _sm90_scratch(x.device, stream, need)
-        err = lib.smm_conv_sm90_launch(
-            x.data_ptr(), deltas.data_ptr(), entries.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), scratch.numel(), *args,
-            stream)
-        what = lib.smm_conv_sm90_error_string
-    if err != 0:
-        raise RuntimeError(f"smm_conv ({impl}) launch failed: CUDA error "
-                           f"{err} ({what(err).decode()})")
-    launches += 1
-    launches_by_impl[impl] += 1
-    return out
+        y = torch.empty(b, m_out, ro, co, dtype=torch.float32,
+                        device=x.device)
+    if y.numel():
+        _launch(impl, x, deltas, entries, y, t_m=t_m, ro=ro, co=co,
+                stride=stride, epi=(
+                    (x_scale.data_ptr(), float(layer_scale),
+                     None if bias is None else bias.data_ptr(),
+                     int(bool(relu)), c, m_img) if fused
+                    else (None, 0.0, None, 0, 0, 0)))
+        launches_with_epilogue += int(fused)
+    if fused:
+        return out.permute(0, 2, 3, 1)
+    if x_scale is not None:
+        return feats.epilogue(y[:, :c], x_scale, layer_scale, bias,
+                              relu=relu, out=out)
+    return y
 
 
 def smm_conv_packed(x: torch.Tensor, deltas: torch.Tensor,
                     entries: torch.Tensor, *, t_m: int, ro: int, co: int,
-                    stride: int = 1,
-                    int8_weights: bool = False) -> torch.Tensor:
+                    stride: int = 1, int8_weights: bool = False,
+                    x_scale: torch.Tensor | None = None,
+                    layer_scale: float = 1.0,
+                    bias: torch.Tensor | None = None, relu: bool = False,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's function on packed operands, by device: the plain
-    version for CPU tensors, the CUDA instance that :func:`pick_impl`
-    names otherwise."""
-    if x.device.type == "cpu":
-        return smm_conv_plain(x, deltas, entries, t_m=t_m, ro=ro, co=co,
-                              stride=stride)
-    return smm_conv_cuda(x, deltas, entries, t_m=t_m, ro=ro, co=co,
-                         stride=stride, int8_weights=int8_weights)
+    version for CPU tensors (then, with ``x_scale``, the plain epilogue,
+    into ``out`` where given), the CUDA instance that :func:`pick_impl`
+    names otherwise (:func:`smm_conv_cuda`, whose epilogue operands these
+    are)."""
+    epi = dict(x_scale=x_scale, layer_scale=layer_scale, bias=bias,
+               relu=relu, out=out)
+    if x.device.type != "cpu":
+        return smm_conv_cuda(x, deltas, entries, t_m=t_m, ro=ro, co=co,
+                             stride=stride, int8_weights=int8_weights, **epi)
+    _check_epilogue_args(x_scale, bias, relu, out)
+    y = smm_conv_plain(x, deltas, entries, t_m=t_m, ro=ro, co=co,
+                       stride=stride)
+    if x_scale is None:
+        return y
+    return feats.epilogue(y[:, :_epilogue_channels(y.shape[1], out)],
+                          x_scale, layer_scale, bias, relu=relu, out=out)
 
 
 def smm_conv_batched(x: torch.Tensor, code: LayerCode, *, stride: int = 1,
-                     operands: tuple | None = None) -> torch.Tensor:
+                     operands: tuple | None = None,
+                     x_scale: torch.Tensor | None = None,
+                     layer_scale: float = 1.0,
+                     bias: torch.Tensor | None = None, relu: bool = False,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Batched CoDR SMM convolution: ``x`` (B, N, RI, CI) float32 →
     (B, M, RO, CO), int-exact, one launch for the whole batch.
 
     Pass ``operands`` (the ``(deltas, entries, meta)`` triple of
     :func:`smm_operands_on`, on ``x``'s device) to reuse a layer's packed
-    operands across calls — the engine caches them per layer."""
+    operands across calls — the engine caches them per layer.
+
+    With ``x_scale`` the layer's epilogue too (:func:`smm_conv_cuda`):
+    the layer's output NHWC ``(B, RO, CO, M)``, NCHW storage, in ``out``
+    (NCHW ``(B, M, RO, CO)``, a channel slice of a larger output is fine)
+    or in a new tensor of M channels."""
     if stride < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
-    _, n_in, ri, ci = x.shape
+    b, n_in, ri, ci = x.shape
+    m = code.shape[0]
     rk, ck = (code.shape[2], code.shape[3]) if len(code.shape) == 4 else (1, 1)
     ro, co = (ri - rk) // stride + 1, (ci - ck) // stride + 1
     if operands is None:
         operands = smm_operands_on(code, n_in, x.device)
     deltas, entries, meta = operands
-    y = smm_conv_packed(x, deltas, entries, t_m=meta["t_m"], ro=ro, co=co,
-                        stride=stride,
-                        int8_weights=meta.get("int8_weights", False))
-    return y[:, : code.shape[0]]
+    kw = dict(t_m=meta["t_m"], ro=ro, co=co, stride=stride,
+              int8_weights=meta.get("int8_weights", False))
+    if x_scale is None:
+        _check_epilogue_args(x_scale, bias, relu, out)
+        return smm_conv_packed(x, deltas, entries, **kw)[:, :m]
+    if out is None:
+        out = torch.empty(b, m, ro, co, dtype=torch.float32, device=x.device)
+    elif out.dim() != 4 or out.shape[1] != m:
+        feats.check_epilogue((b, m, ro, co), x.device, x_scale, bias, out)
+    return smm_conv_packed(x, deltas, entries, x_scale=x_scale,
+                           layer_scale=layer_scale, bias=bias, relu=relu,
+                           out=out, **kw)
 
 
 def smm_conv(x: torch.Tensor, code: LayerCode, *,

@@ -292,9 +292,10 @@ def cuda_device():
 def test_cuda_path_equals_the_cpu_plain_version(cuda_device, kind):
     """``smm_kernel`` on the card: the ``int8_features`` kernels (the
     padded quantize, the max pooling of the int8 features and between the
-    modules, the epilogue into a channel slice) and ``smm_conv``, bit for
-    bit the CPU's plain version, no read to the host, six ``smm_conv``
-    launches a module, all ``sm90``."""
+    modules) and ``smm_conv`` with the epilogue in its store (into a
+    channel slice at each branch's end), bit for bit the CPU's plain
+    version, no read to the host, six ``smm_conv`` launches a module, all
+    ``sm90`` and all with the epilogue, no separate epilogue launch."""
     from repro_torch.kernels.int8_features import ops as feats
     from repro_torch.kernels.smm_conv import ops as smm_ops
     spec, _, x = _net(kind)
@@ -305,13 +306,107 @@ def test_cuda_path_equals_the_cpu_plain_version(cuda_device, kind):
     torch.cuda.synchronize()
     smm_ops.launches_by_impl.update(dict.fromkeys(smm_ops.IMPLS, 0))
     feats.launches_by_impl.update(dict.fromkeys(feats.IMPLS, 0))
+    with_epilogue = smm_ops.launches_with_epilogue
     got = _profiled(lambda: card.run(x))
     y = card.run(x).cpu()
     n_mod = 1 if kind == "module" else 2
     assert torch.equal(y, want)
     assert not [s for s in got if s.name == "codr.host_read"]
     assert smm_ops.launches_by_impl == {"sm90": 12 * n_mod, "simt": 0}
+    assert smm_ops.launches_with_epilogue - with_epilogue == 12 * n_mod
     assert feats.launches_by_impl["stats"] == 6 * n_mod
     assert feats.launches_by_impl["quantize_pad"] == 4 * n_mod
-    assert feats.launches_by_impl["epilogue"] == 12 * n_mod
+    assert feats.launches_by_impl["epilogue"] == 0
     assert feats.launches_by_impl["max_pool"] == 2 * (2 * n_mod - 1)
+
+
+def _googlenet(device):
+    """Inception 3a, 3b, the 3×3/2 pool, 4a, 4b at their published widths
+    (``GOOGLENET_INCEPTION``; weights as :func:`_weights`) on
+    ``smm_kernel``: 24 convolutions."""
+    g = torch.Generator().manual_seed(11)
+    steps = []
+    for name in ("3a", "3b", "4a", "4b"):
+        if name == "4a":
+            steps.append(codr.PoolSpec(3, 2, 0, True))
+        steps.append(_module_spec(_weights(g, *GOOGLENET_INCEPTION[name][1:]),
+                                  name))
+    return codr.compile(codr.ModelSpec(steps), codr.EncodeConfig(n_unique=16),
+                        backend="smm_kernel", device=device)
+
+
+@pytest.fixture(scope="module")
+def googlenet_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return _googlenet("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["3a", "3b", "4a", "4b"])
+def test_cuda_fused_store_equals_smm_conv_then_epilogue_googlenet(
+        name, googlenet_card):
+    """At each of a module's six convolutions (batch 2, the published
+    plane, on its border): the sm90 launch with the epilogue in its store
+    is ``torch.equal`` to ``smm_conv`` then the ``int8_features``
+    epilogue, each branch's last convolution into its channel slice of
+    the module's output with the other channels untouched; one sm90
+    launch each, counted with the epilogue, no separate epilogue."""
+    from repro_torch.kernels.int8_features import ops as feats
+    from repro_torch.kernels.smm_conv import ops as smm_ops
+    mod = next(s for s in googlenet_card.model.steps
+               if s.kind == "module" and s.name == name)
+    hw = GOOGLENET_INCEPTION[name][0]
+    gen = torch.Generator(device="cuda").manual_seed(len(name))
+    scale = torch.tensor([0.0173], device="cuda")
+    c0 = 0
+    for branch in mod.branches:
+        for layer in (s for s in branch if s.kind == "conv"):
+            m, n = layer.code.shape[:2]
+            last = layer is branch[-1]
+            ri = hw + 2 * layer.padding
+            q = torch.randint(-127, 128, (2, n, ri, ri), device="cuda",
+                              generator=gen).float()
+            width, at = (mod.out_channels, c0) if last else (m, 0)
+            bufs = [torch.full((2, width, hw, hw), 7.0, device="cuda")
+                    for _ in range(2)]
+            y = smm_ops.smm_conv_batched(q, layer.code,
+                                         operands=layer.smm_operands())
+            feats.epilogue(y, scale, layer.scale, layer.bias_device,
+                           relu=True, out=bufs[0][:, at:at + m])
+            before = (smm_ops.launches_by_impl["sm90"],
+                      smm_ops.launches_with_epilogue,
+                      feats.launches_by_impl["epilogue"])
+            smm_ops.smm_conv_batched(q, layer.code,
+                                     operands=layer.smm_operands(),
+                                     x_scale=scale, layer_scale=layer.scale,
+                                     bias=layer.bias_device, relu=True,
+                                     out=bufs[1][:, at:at + m])
+            torch.cuda.synchronize()
+            assert torch.equal(bufs[0], bufs[1]), (name, layer.name)
+            assert (smm_ops.launches_by_impl["sm90"] - before[0],
+                    smm_ops.launches_with_epilogue - before[1],
+                    feats.launches_by_impl["epilogue"] - before[2]) == (1, 1,
+                                                                        0)
+        c0 += branch[-1].code.shape[0]
+
+
+@pytest.mark.cuda
+def test_cuda_googlenet_forward_applies_every_epilogue_in_the_store(
+        googlenet_card):
+    """A forward of the four modules: 24 sm90 launches, each with the
+    epilogue in its store, and no ``int8_features`` epilogue launch."""
+    from repro_torch.kernels.int8_features import ops as feats
+    from repro_torch.kernels.smm_conv import ops as smm_ops
+    x = torch.relu(torch.randn(2, 28, 28, 192, device="cuda"))
+    googlenet_card.run(x)                    # decode and pack once
+    torch.cuda.synchronize()
+    before = (dict(smm_ops.launches_by_impl), smm_ops.launches_with_epilogue,
+              feats.launches_by_impl["epilogue"])
+    y = googlenet_card.run(x)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 14, 14, 512)
+    assert {i: smm_ops.launches_by_impl[i] - before[0][i]
+            for i in smm_ops.IMPLS} == {"sm90": 24, "simt": 0}
+    assert smm_ops.launches_with_epilogue - before[1] == 24
+    assert feats.launches_by_impl["epilogue"] == before[2]

@@ -385,14 +385,16 @@ def _vgg_like(device: str, hw: int = 20):
 @pytest.mark.cuda
 def test_cuda_vgg_like_chain_reads_nothing_and_equals_the_reference(
         cuda_device):
-    """A small VGG16-shaped chain on ``smm_kernel``: three launches a
-    layer (``quantize_nhwc`` at a block's first layer), no
+    """A small VGG16-shaped chain on ``smm_kernel``: two ``int8_features``
+    launches a layer (``quantize_nhwc`` at a block's first layer) and
+    ``smm_conv`` with the epilogue in its store, no
     ``codr.host_read`` span under a profiler, and the output of every
     block equal to the host lane (``smm``: ``_int_activations``, NumPy
     SMM, ``_finish``) and to the plain chain."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.smm_conv import ops as smm_ops
     from repro_torch.kernels.smm_conv import ref as smm_ref
     models = _vgg_like("cuda")
     x0 = torch.from_numpy(_inputs("whole_pixels", (4, 24, 24, 3))).to(
@@ -411,6 +413,7 @@ def test_cuda_vgg_like_chain_reads_nothing_and_equals_the_reference(
     chain(lambda mdl, x: mdl.run(x))             # builds and packs first
     torch.cuda.synchronize()
     before = dict(ops.launches_by_impl)
+    with_epilogue = smm_ops.launches_with_epilogue
     spans.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         got = chain(lambda mdl, x: mdl.run(x))
@@ -421,7 +424,8 @@ def test_cuda_vgg_like_chain_reads_nothing_and_equals_the_reference(
     assert "codr.host_read" not in recorded
     assert {k: ops.launches_by_impl[k] - before[k] for k in ops.IMPLS} == \
         {"stats": 4, "quantize": 2, "quantize_nhwc": 2, "quantize_pad": 0,
-         "max_pool": 0, "epilogue": 4}
+         "max_pool": 0, "epilogue": 0}
+    assert smm_ops.launches_with_epilogue - with_epilogue == 4
     host = chain(lambda mdl, x: mdl.run(x, backend="smm"))
 
     def plain(mdl, x):

@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.core import smm as tsmm
 from repro_torch.core import ucr as tucr
+from repro_torch.kernels.int8_features import ops as feats
+from repro_torch.kernels.int8_features.ref import epilogue_plain
 from repro_torch.kernels.smm_conv import ops as tops
 from repro_torch.kernels.smm_conv import ref as tref
 
@@ -154,7 +156,8 @@ def test_kernel_caps_is_a_literal_with_the_registry_keys():
 
 # -- the sm90 instance's arithmetic, emulated on the host -----------------
 
-def _emulate_sm90(x, deltas, entries, *, t_m, ro, co, store_padding=False):
+def _emulate_sm90(x, deltas, entries, *, t_m, ro, co, store_padding=False,
+                  epi=None):
     """NumPy emulation of ``smm_conv_sm90.cu`` at stride 1.
 
     Phase 1 builds the dense int8 weight matrix, K ordered (tap r, tap c,
@@ -163,7 +166,14 @@ def _emulate_sm90(x, deltas, entries, *, t_m, ro, co, store_padding=False):
     value[U] = 0, which a correct kernel must not do).  Phase 2 stages x
     channel-innermost in int8, pixels linearized as q = y·CI + x, and per
     tile of ``ops.sm90_plan`` takes the int32 sum of the window shifted by
-    r·CI + c against the tap's weights; outputs at x ≥ CO are dropped."""
+    r·CI + c against the tap's weights; outputs at x ≥ CO are dropped.
+
+    ``epi`` (a dict: ``x_scale``, ``layer_scale``, ``bias``, ``relu``,
+    ``m``, ``buf``, ``c0``) emulates the store with the layer's epilogue:
+    each of the first ``m`` rows goes int32 → float32, times float32(layer
+    scale · x scale), plus the bias, then ReLU, into channels ``c0 ..
+    c0 + m`` of the NCHW buffer ``buf``, which it returns; nothing else
+    of ``buf`` is written."""
     x = np.asarray(x)
     b, n_in, ri, ci = x.shape
     m_tiles, _, u_plus = deltas.shape
@@ -200,7 +210,17 @@ def _emulate_sm90(x, deltas, entries, *, t_m, ro, co, store_padding=False):
                     "mk,bpk->bmp", w[:, r * kw + c].astype(np.int32),
                     win[:, sh : sh + bn])
     out = lin[:, :m_out, :q_img].reshape(b, m_out, ro, ci)[..., :co]
-    return out.astype(np.float32)
+    if epi is None:
+        return out.astype(np.float32)
+    s = np.float32(np.float64(epi["layer_scale"]) * np.float64(epi["x_scale"]))
+    v = out[:, :epi["m"]].astype(np.float32) * s
+    if epi["bias"] is not None:
+        v = v + epi["bias"][None, :, None, None]
+    if epi["relu"]:
+        v = np.where(np.isnan(v), v, np.maximum(v, np.float32(0)))
+    buf, c0 = epi["buf"], epi["c0"]
+    buf[:, c0:c0 + epi["m"]] = v
+    return buf
 
 
 def _stride1_case(rng, m, n, rk, ck, ri, ci, t_m, t_n, b=2, density=0.5):
@@ -262,6 +282,138 @@ def test_sm90_emulation_skips_padding_entries(rng):
     wrong = _emulate_sm90(x, deltas, entries, t_m=4, ro=6, co=6,
                           store_padding=True)
     assert not np.array_equal(wrong, plain)
+
+
+# the layer's epilogue, as the sm90 store applies it: (bias, relu, a
+# channel slice of a wider output as (channels before it, after it))
+EPILOGUES = [(False, False, None), (True, False, None), (False, True, (0, 3)),
+             (True, True, (5, 2))]
+
+
+def _fused_case(rng, m, b, ro, co, bias, relu, where):
+    """The epilogue's operands for an ``m``-channel layer: ``(kw, buf,
+    c0)``, ``kw`` the fused call's keywords (``out`` a channel slice of
+    ``buf``, a 7-filled NCHW buffer, where ``where`` asks for one)."""
+    before, after = where or (0, 0)
+    buf = torch.full((b, before + m + after, ro, co), 7.0)
+    kw = dict(x_scale=torch.tensor([0.0173], dtype=torch.float32),
+              layer_scale=0.0421,
+              bias=torch.from_numpy(rng.normal(size=m).astype(np.float32)
+                                    * 40) if bias else None,
+              relu=relu, out=buf[:, before:before + m] if where else None)
+    return kw, buf, before
+
+
+def _untouched(buf, c0, m) -> bool:
+    return bool((buf[:, :c0] == 7).all() and (buf[:, c0 + m:] == 7).all())
+
+
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("shape", SM90_EMU_SHAPES)
+def test_sm90_fused_store_emulated_equals_the_plain_epilogue(shape, epi, rng):
+    """The sm90 store with the layer's epilogue, emulated, and the
+    wrapper's fused call on CPU tensors (``smm_conv_batched``): bit for
+    bit ``epilogue_plain(smm_conv_plain(...))``, with and without bias
+    and ReLU; the rows past M of a ragged last m_tile (m = 6, 10) are
+    not written, nor the channels beside a slice."""
+    m, n, rk, ck, ri, ci, t_m, t_n = shape
+    _, code, deltas, entries, meta, x = _stride1_case(rng, *shape)
+    ro, co = ri - rk + 1, ci - ck + 1
+    kw, buf, c0 = _fused_case(rng, m, x.shape[0], ro, co, *epi)
+    d, e = torch.from_numpy(deltas), torch.from_numpy(entries)
+    raw = tref.smm_conv_plain(torch.from_numpy(x), d, e, t_m=t_m, ro=ro,
+                              co=co)
+    want = epilogue_plain(raw[:, :m], kw["x_scale"], kw["layer_scale"],
+                          kw["bias"], kw["relu"])
+    emu = _emulate_sm90(x, deltas, entries, t_m=t_m, ro=ro, co=co, epi=dict(
+        x_scale=kw["x_scale"].numpy()[0], layer_scale=kw["layer_scale"],
+        bias=None if kw["bias"] is None else kw["bias"].numpy(),
+        relu=kw["relu"], m=m, buf=buf.numpy().copy(), c0=c0))
+    np.testing.assert_array_equal(emu[:, c0:c0 + m],
+                                  want.permute(0, 3, 1, 2).numpy())
+    assert _untouched(torch.from_numpy(emu), c0, m)
+    got = tops.smm_conv_batched(torch.from_numpy(x), code,
+                                operands=(d, e, meta), **kw)
+    assert got.shape == (x.shape[0], ro, co, m)
+    assert torch.equal(got, want) and _untouched(buf, c0, m)
+    if kw["out"] is not None:
+        assert torch.equal(buf[:, c0:c0 + m], want.permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_call_on_cpu_tensors_is_the_plain_epilogue(shape, stride, epi,
+                                                         rng):
+    """``smm_conv_packed`` and ``smm_conv_batched`` with the epilogue's
+    operands on CPU tensors: the plain version, then ``epilogue_plain``
+    into the slice where there is one, and no launch counted; without
+    them the raw sums as before."""
+    m, n, rk, ck, ri, ci, t_m, t_n = shape
+    code = tucr.encode_conv_layer(_sparse(rng, (m, n, rk, ck), 0.5),
+                                  t_m=t_m, t_n=t_n)
+    d, e, meta = tops.smm_operands_on(code, n, "cpu")
+    x = torch.from_numpy(rng.integers(-127, 128, size=(2, n, ri, ci))
+                         .astype(np.float32))
+    ro, co = (ri - rk) // stride + 1, (ci - ck) // stride + 1
+    raw = tops.smm_conv_packed(x, d, e, t_m=t_m, ro=ro, co=co, stride=stride)
+    assert torch.equal(raw, tref.smm_conv_plain(x, d, e, t_m=t_m, ro=ro,
+                                                co=co, stride=stride))
+    before = (tops.launches, tops.launches_with_epilogue)
+    for call in ("packed", "batched"):
+        kw, buf, c0 = _fused_case(rng, m, 2, ro, co, *epi)
+        want = epilogue_plain(raw[:, :m], kw["x_scale"], kw["layer_scale"],
+                              kw["bias"], kw["relu"])
+        if call == "packed":
+            if kw["out"] is None:       # all m_tiles·t_m channels
+                kw["bias"] = None if kw["bias"] is None else torch.cat(
+                    [kw["bias"], torch.zeros(raw.shape[1] - m)])
+                want = epilogue_plain(raw, kw["x_scale"], kw["layer_scale"],
+                                      kw["bias"], kw["relu"])
+            got = tops.smm_conv_packed(x, d, e, t_m=t_m, ro=ro, co=co,
+                                       stride=stride, **kw)
+        else:
+            got = tops.smm_conv_batched(x, code, stride=stride,
+                                        operands=(d, e, meta), **kw)
+        assert torch.equal(got, want) and _untouched(buf, c0, m)
+    assert (tops.launches, tops.launches_with_epilogue) == before
+
+
+_BAD_EPILOGUES = [
+    # (x_scale, bias, out, match): int8_features.epilogue's own messages
+    (torch.ones(1, dtype=torch.float64), None, None, "x_scale must be"),
+    (torch.ones(2), None, None, "x_scale must be"),
+    (torch.ones(1, device="meta"), None, None, "x_scale is on meta"),
+    (torch.ones(1), torch.ones(3), None, "bias must be"),
+    (torch.ones(1), torch.ones(6, device="meta"), None, "bias is on meta"),
+    (torch.ones(1), None, torch.zeros(2, 6, 5, 6), "out must be"),
+    (torch.ones(1), None, torch.zeros(2, 6, 6, 6, dtype=torch.float64),
+     "out must be"),
+    (torch.ones(1), None, torch.zeros(2, 9, 6, 6), "out must be"),
+    (None, torch.ones(6), None, "pass x_scale"),
+    (None, None, torch.zeros(2, 6, 6, 6), "pass x_scale"),
+]
+
+
+@pytest.mark.parametrize("entry", ["batched", "packed", "cuda"])
+@pytest.mark.parametrize("x_scale, bias, out, match", _BAD_EPILOGUES)
+def test_fused_call_rejects_a_bad_epilogue(x_scale, bias, out, match, entry,
+                                           rng):
+    """Bad epilogue operands raise before anything runs, with
+    ``int8_features.epilogue``'s messages (``smm_conv_cuda`` checks them
+    before it looks at the device)."""
+    code = tucr.encode_conv_layer(_sparse(rng, (6, 2, 3, 3), 0.5), t_m=4,
+                                  t_n=2)
+    d, e, meta = tops.smm_operands_on(code, 2, "cpu")
+    x = torch.zeros(2, 2, 8, 8)
+    kw = dict(x_scale=x_scale, bias=bias, out=out, relu=True)
+    with pytest.raises(ValueError, match=match):
+        if entry == "batched":
+            tops.smm_conv_batched(x, code, operands=(d, e, meta), **kw)
+        else:
+            call = tops.smm_conv_packed if entry == "packed" \
+                else tops.smm_conv_cuda
+            call(x, d, e, t_m=4, ro=6, co=6, **kw)
 
 
 # VGG16 conv1_1..conv3_3 as the main path chains them (VALID, no pooling,
@@ -544,3 +696,172 @@ def test_cuda_sm90_refuses_x_outside_int8(cuda_device):
     assert "launched" in proc.stdout, proc.stderr
     assert "no error" not in proc.stdout
     assert proc.returncode != 0
+
+
+# -- the layer's epilogue in the sm90 store, on the card --------------------
+
+def _both_ways(layer, q, scale, *, bias, relu, width, c0):
+    """``layer`` on int8 features ``q`` (its border included) written
+    both ways into channels ``c0 ..`` of 7-filled NCHW buffers of
+    ``width`` channels: ``smm_conv``'s raw sums then the ``int8_features``
+    epilogue, and the fused call.  Returns ``(two_kernel, fused,
+    launches)``, ``launches`` the fused call's counts: sm90, with the
+    epilogue, separate epilogues."""
+    m = layer.code.shape[0]
+    b, _, ri, ci = q.shape
+    ro, co = layer.out_hw(ri - 2 * layer.padding, ci - 2 * layer.padding)
+    bufs = [torch.full((b, width, ro, co), 7.0, device=q.device)
+            for _ in range(2)]
+    y = tops.smm_conv_batched(q, layer.code, stride=layer.stride,
+                              operands=layer.smm_operands())
+    feats.epilogue(y, scale, layer.scale, bias, relu=relu,
+                   out=bufs[0][:, c0:c0 + m])
+    before = (tops.launches_by_impl["sm90"], tops.launches_with_epilogue,
+              feats.launches_by_impl["epilogue"])
+    got = tops.smm_conv_batched(q, layer.code, stride=layer.stride,
+                                operands=layer.smm_operands(), x_scale=scale,
+                                layer_scale=layer.scale, bias=bias, relu=relu,
+                                out=bufs[1][:, c0:c0 + m])
+    torch.cuda.synchronize()
+    assert got.shape == (b, ro, co, m)
+    assert got.data_ptr() == bufs[1][:, c0:c0 + m].data_ptr()
+    after = (tops.launches_by_impl["sm90"], tops.launches_with_epilogue,
+             feats.launches_by_impl["epilogue"])
+    return bufs[0], bufs[1], tuple(a - c for a, c in zip(after, before))
+
+
+@pytest.fixture(scope="module")
+def vgg16_card():
+    """VGG16 conv1_1..conv3_3 (published widths, density 0.4, U = 16) on
+    ``smm_kernel`` on the card, encoded once for this file's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import repro_torch.api as codr
+    from repro_torch.configs.paper_cnns import VGG16
+    spec = codr.ModelSpec.from_shapes(VGG16[:7], None, density=0.4,
+                                      rng=np.random.default_rng(7))
+    return codr.compile(spec, codr.EncodeConfig(n_unique=16),
+                        backend="smm_kernel", device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(7))
+def test_cuda_fused_store_equals_smm_conv_then_epilogue_vgg16(index,
+                                                             vgg16_card):
+    """At each VGG16 layer (main-path plane, batch 2): the sm90 launch
+    with the epilogue in its store is ``torch.equal`` to ``smm_conv``
+    then the ``int8_features`` epilogue, with and without bias and ReLU,
+    into a whole output and into a channel slice with its neighbours
+    untouched; one sm90 launch, counted with the epilogue, and no
+    separate epilogue."""
+    layer = vgg16_card.model.layers[index]
+    m, n = layer.code.shape[:2]
+    hw = _VGG_MAIN_HW[index]
+    g = torch.Generator(device="cuda").manual_seed(index)
+    q = torch.randint(-127, 128, (2, n, hw, hw), device="cuda",
+                      generator=g).float()
+    scale = torch.tensor([0.0173], device="cuda")
+    bias = torch.randn(m, device="cuda", generator=g) * 40
+    for b, relu, (width, c0) in ((None, False, (m, 0)),
+                                 (bias, True, (m, 0)),
+                                 (bias, False, (m + 9, 5)),
+                                 (None, True, (m + 3, 3))):
+        two, fused, counts = _both_ways(layer, q, scale, bias=b, relu=relu,
+                                        width=width, c0=c0)
+        assert torch.equal(two, fused), (index, b is None, relu, c0)
+        assert counts == (1, 1, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_vgg16_forward_applies_every_epilogue_in_the_store(vgg16_card):
+    """A forward of the seven layers: 7 sm90 launches, each counted with
+    the epilogue, no ``int8_features`` epilogue launch, and the output of
+    the layers run one by one on two kernels (features, ``smm_conv``,
+    epilogue)."""
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, size=(2, 30, 30, 3)).astype(np.float32)).cuda()
+    vgg16_card.run(x)                        # decode and pack once
+    torch.cuda.synchronize()
+    before = (dict(tops.launches_by_impl), tops.launches_with_epilogue,
+              feats.launches_by_impl["epilogue"])
+    y = vgg16_card.run(x)
+    torch.cuda.synchronize()
+    assert {i: tops.launches_by_impl[i] - before[0][i]
+            for i in tops.IMPLS} == {"sm90": 7, "simt": 0}
+    assert tops.launches_with_epilogue - before[1] == 7
+    assert feats.launches_by_impl["epilogue"] == before[2]
+    h = x
+    for layer in vgg16_card.model.layers:
+        q, s = feats.int8_features(h)
+        h = feats.epilogue(
+            tops.smm_conv_batched(q, layer.code,
+                                  operands=layer.smm_operands()),
+            s, layer.scale, None if layer.bias is None else layer.bias_device,
+            relu=layer.activation == "relu")
+    assert torch.equal(y, h)
+
+
+@pytest.mark.cuda
+def test_cuda_simt_routed_layers_keep_the_separate_epilogue(cuda_device,
+                                                            rng):
+    """A strided layer, and one whose operands are not known to fit int8,
+    go to simt, which has no fused store: ``smm_conv`` then the
+    ``int8_features`` epilogue launch, the plain epilogue's numbers, into
+    the slice; through the backend too."""
+    import repro_torch.api as codr
+    w = _sparse(rng, (10, 6, 3, 3), 0.5)
+    b = rng.normal(size=10).astype(np.float32)
+    x = torch.from_numpy(rng.integers(-127, 128, size=(2, 6, 17, 17))
+                         .astype(np.float32)).to(cuda_device)
+    scale = torch.tensor([0.0211], device=cuda_device)
+    bias = torch.from_numpy(b).to(cuda_device)
+    code = tucr.encode_conv_layer(w, t_m=4, t_n=2, n_unique=16)
+    d, e, meta = tops.smm_operands_on(code, 6, cuda_device)
+    for stride, flag in ((2, True), (1, False)):
+        ro = (17 - 3) // stride + 1
+        buf = torch.full((2, 14, ro, ro), 7.0, device=cuda_device)
+        before = (dict(tops.launches_by_impl), tops.launches_with_epilogue,
+                  feats.launches_by_impl["epilogue"])
+        got = tops.smm_conv_batched(
+            x, code, stride=stride, operands=(d, e, dict(
+                meta, int8_weights=flag)), x_scale=scale, layer_scale=0.37,
+            bias=bias, relu=True, out=buf[:, 3:13])
+        torch.cuda.synchronize()
+        assert tops.launches_by_impl["simt"] - before[0]["simt"] == 1
+        assert tops.launches_by_impl["sm90"] == before[0]["sm90"]
+        assert tops.launches_with_epilogue == before[1]
+        assert feats.launches_by_impl["epilogue"] - before[2] == 1
+        raw = tref.smm_conv_plain(x, d, e, t_m=4, ro=ro, co=ro,
+                                  stride=stride)[:, :10]
+        assert torch.equal(got, epilogue_plain(raw, scale, 0.37, bias, True))
+        assert _untouched(buf.cpu(), 3, 10)
+    spec = codr.ModelSpec([codr.LayerSpec.conv(w, b, stride=2,
+                                               activation="relu")])
+    xin = x[:1].permute(0, 2, 3, 1).contiguous()
+    card = codr.compile(spec, codr.EncodeConfig(n_unique=16),
+                        backend="smm_kernel", device=cuda_device)
+    host = codr.compile(spec, codr.EncodeConfig(n_unique=16),
+                        backend="smm_kernel", device="cpu")
+    card.run(xin)
+    before = (tops.launches_with_epilogue, feats.launches_by_impl["epilogue"])
+    y = card.run(xin)
+    torch.cuda.synchronize()
+    assert (tops.launches_with_epilogue,
+            feats.launches_by_impl["epilogue"] - 1) == before
+    assert torch.equal(y.cpu(), host.run(xin.cpu()))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_store_refuses_a_slice_without_whole_planes(cuda_device,
+                                                              rng):
+    """The fused store writes whole channel planes: an ``out`` cut inside
+    the plane raises as the ``int8_features`` epilogue does."""
+    code = tucr.encode_conv_layer(_sparse(rng, (8, 4, 3, 3), 0.5), t_m=4,
+                                  t_n=2)
+    d, e, meta = tops.smm_operands_on(code, 4, cuda_device)
+    x = torch.zeros(2, 4, 10, 10, device=cuda_device)
+    buf = torch.zeros(2, 12, 8, 9, device=cuda_device)
+    with pytest.raises(ValueError, match="whole channel planes"):
+        tops.smm_conv_batched(x, code, operands=(d, e, meta),
+                              x_scale=torch.ones(1, device=cuda_device),
+                              out=buf[:, 2:10, :, :8])
