@@ -14,10 +14,10 @@ The CNN request path carries seven: ``codr.run`` (``CompiledModel.run``),
 (each of a module's branches, attrs ``module``, ``index`` and ``kind``:
 ``1x1``, ``3x3``, ``5x5`` or ``pool``), ``codr.pool`` (each max
 pooling, attrs ``window``, ``stride``), ``codr.features`` (the int8
-feature path: the ``int8_features`` kernels' launches on the card,
-``backends._int_activations`` on the host paths) and ``codr.host_read``
-(each of ``_int_activations``' two reads of a scalar to the host; the
-card's path reads none).  Read them after profiling::
+feature path: the ``int8_features`` wrapper on ``smm_kernel``,
+``backends._int_activations`` on ``smm``) and ``codr.host_read`` (each
+of ``_int_activations``' two reads of a scalar to the host: only the
+``smm`` lane reads).  Read them after profiling::
 
     with torch.profiler.profile(...):
         model.run(x)

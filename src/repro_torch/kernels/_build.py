@@ -24,7 +24,7 @@ import threading
 import torch
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "INCLUDE_DIR", "load_library",
-           "log_path", "stream_handle"]
+           "log_path", "stream_handle", "stream_buffer"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,3 +101,18 @@ def stream_handle(device: torch.device) -> int:
     what ``torch.cuda.current_stream(device).cuda_stream`` gives, without a
     ``Stream`` object built for every launch (host time a launch)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def stream_buffer(buffers: dict, device: torch.device, stream: int, n: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The buffer ``buffers`` keeps for (``device``, ``stream``), at least
+    ``n`` elements: made zero, and made anew (zero again) when a call
+    needs more than it holds.  Calls on one stream run in order, so they
+    share it; none syncs with the host, and its address stays put until
+    it grows."""
+    key = (device.index, stream)
+    buf = buffers.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=dtype, device=device)
+        buffers[key] = buf
+    return buf

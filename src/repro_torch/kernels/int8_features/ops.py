@@ -93,20 +93,10 @@ def _max_blocks(device_index: int) -> int:
     return sms * _BLOCKS_PER_SM
 
 
-# The stats accumulator, three uint32 words per (device, stream): made zero
-# once and left zero by every launch.  Calls on one stream run in order,
-# so they share it; none syncs with the host.
+# The stats accumulator, three uint32 words per (device, stream)
+# (:func:`_build.stream_buffer`): made zero once and left zero by every
+# launch.
 _acc: dict[tuple, torch.Tensor] = {}
-
-
-def _accumulator(device: torch.device, stream: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _acc.get(key)
-    if buf is None:
-        buf = torch.zeros(4, dtype=torch.int32, device=device)
-        _acc[key] = buf
-    return buf
-
 
 
 def _launched(impl: str, err: int) -> None:
@@ -155,9 +145,10 @@ def feature_scale(x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
     stream = _build.stream_handle(x.device)
     scale = torch.empty(1, dtype=torch.float32, device=x.device)
+    acc = _build.stream_buffer(_acc, x.device, stream, 4, torch.int32)
     _launched("stats", load_kernel().int8_features_stats_launch(
-        x.data_ptr(), x.numel(), _accumulator(x.device, stream).data_ptr(),
-        scale.data_ptr(), _max_blocks(x.device.index), stream))
+        x.data_ptr(), x.numel(), acc.data_ptr(), scale.data_ptr(),
+        _max_blocks(x.device.index), stream))
     return scale
 
 

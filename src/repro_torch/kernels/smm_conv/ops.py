@@ -247,24 +247,10 @@ def load_kernel(impl: str):
     return lib
 
 
-# Scratch of the sm90 instance, one uint8 buffer per (device, stream): two
-# barrier words, made zero once and left ready by every launch, then the
-# dense int8 weights and x in int8, which each launch writes anew.  Calls
-# on one stream run in order, so they share it; none syncs with the host.
+# Scratch of the sm90 instance per (device, stream), at least 1 MiB
+# (:func:`_build.stream_buffer`): two barrier words, left ready by every
+# launch, then the dense int8 weights and x in int8, written anew.
 _scratch: dict[tuple, torch.Tensor] = {}
-
-
-def _sm90_scratch(device: torch.device, stream: int,
-                  n_bytes: int) -> torch.Tensor:
-    """The stream's scratch, grown (and zeroed) when a call needs more."""
-    key = (device.index, stream)
-    buf = _scratch.get(key)
-    if buf is None or buf.numel() < n_bytes:
-        buf = torch.zeros(max(n_bytes, 1 << 20), dtype=torch.uint8,
-                          device=device)
-        _scratch[key] = buf
-    return buf
-
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -293,19 +279,36 @@ def _resolve_impl(x_shape, deltas_shape, impl, **kw) -> str:
     return impl
 
 
-def _epilogue_channels(m_out: int, out: torch.Tensor | None) -> int:
-    """The channels a call with the epilogue writes: ``out``'s, where it
-    is NCHW with 1 .. ``m_out`` of them, else all ``m_out`` (and an
-    ``out`` of another shape fails :func:`check_epilogue`)."""
-    if out is not None and out.dim() == 4 and 0 < out.shape[1] <= m_out:
-        return out.shape[1]
-    return m_out
+def _epilogue(x, m_out: int, ro: int, co: int, x_scale, layer_scale, bias,
+              relu, out, m: int | None = None) -> tuple | None:
+    """A call's epilogue operands, checked once whichever entry takes
+    them: None for the raw sums (bias, relu and out need x_scale), else
+    ``(x_scale, layer_scale, bias, relu, out, c)``, ``c`` the channels
+    written (``feats.check_epilogue``'s shape): ``m`` where given, else
+    ``out``'s where it is NCHW with 1 .. ``m_out`` of them, else
+    ``m_out``."""
+    if x_scale is None:
+        if bias is not None or relu or out is not None:
+            raise ValueError("bias, relu and out belong to the layer's "
+                             "epilogue: pass x_scale with them")
+        return None
+    if m is None:
+        m = (out.shape[1] if out is not None and out.dim() == 4
+             and 0 < out.shape[1] <= m_out else m_out)
+    feats.check_epilogue((x.shape[0], m, ro, co), x.device, x_scale, bias,
+                         out)
+    return x_scale, float(layer_scale), bias, bool(relu), out, m
 
 
-def _check_epilogue_args(x_scale, bias, relu, out) -> None:
-    if x_scale is None and (bias is not None or relu or out is not None):
-        raise ValueError("bias, relu and out belong to the layer's "
-                         "epilogue: pass x_scale with them")
+def _unfused(y: torch.Tensor, epi: tuple | None) -> torch.Tensor:
+    """The raw sums ``y``, or with ``epi`` the ``int8_features`` epilogue
+    of their first ``c`` channels, into ``out`` where given: what follows
+    ``simt`` and the plain version."""
+    if epi is None:
+        return y
+    x_scale, layer_scale, bias, relu, out, c = epi
+    return feats.epilogue(y[:, :c], x_scale, layer_scale, bias, relu=relu,
+                          out=out)
 
 
 def _launch(impl: str, x, deltas, entries, y, *, t_m: int, ro: int,
@@ -329,7 +332,8 @@ def _launch(impl: str, x, deltas, entries, y, *, t_m: int, ro: int,
             raise ValueError("entries must be 16-byte aligned")
         need = sm90_plan(tuple(x.shape), tuple(deltas.shape), t_m=t_m,
                          ro=ro, co=co)["scratch_bytes"]
-        scratch = _sm90_scratch(x.device, stream, need)
+        scratch = _build.stream_buffer(_scratch, x.device, stream,
+                                       max(need, 1 << 20), torch.uint8)
         err = lib.smm_conv_sm90_launch(
             x.data_ptr(), deltas.data_ptr(), entries.data_ptr(),
             y.data_ptr(), scratch.data_ptr(), scratch.numel(), *args, *epi,
@@ -340,6 +344,67 @@ def _launch(impl: str, x, deltas, entries, y, *, t_m: int, ro: int,
                            f"{err} ({what(err).decode()})")
     launches += 1
     launches_by_impl[impl] += 1
+
+
+def _on_cuda(x, deltas, entries, epi, int8_weights: bool,
+             impl: str | None = None, *, t_m: int, ro: int, co: int,
+             stride: int) -> torch.Tensor:
+    """A call whose epilogue is checked, on its instance: ``sm90``
+    applies ``epi`` in its store; after ``simt`` the ``int8_features``
+    epilogue runs."""
+    global launches_with_epilogue
+    _check("x", x, torch.float32, 4, x.device)
+    _check("deltas", deltas, torch.float32, 3, x.device)
+    _check("entries", entries, torch.int32, 4, x.device)
+    b, n_in, ri, ci = x.shape
+    m_tiles, n2, _ = deltas.shape
+    if n2 != n_in or entries.shape[:2] != (m_tiles, n_in) \
+            or entries.shape[3] != 4:
+        raise ValueError(f"operand shapes disagree: x {tuple(x.shape)}, "
+                         f"deltas {tuple(deltas.shape)}, entries "
+                         f"{tuple(entries.shape)}")
+    if stride < 1 or t_m < 1 or ro < 1 or co < 1 \
+            or (ro - 1) * stride >= ri or (co - 1) * stride >= ci:
+        raise ValueError(f"bad geometry: t_m={t_m} ro={ro} co={co} "
+                         f"stride={stride} for a {ri}x{ci} input")
+    impl = _resolve_impl(tuple(x.shape), tuple(deltas.shape), impl, t_m=t_m,
+                         ro=ro, co=co, stride=stride,
+                         int8_weights=int8_weights)
+    if x.device.type != "cuda":
+        raise ValueError(f"smm_conv_cuda needs CUDA tensors, got x on "
+                         f"{x.device}")
+    if impl == "simt" and (b > _GRID_YZ or m_tiles > _GRID_YZ):
+        raise ValueError(f"batch {b} and m_tiles {m_tiles} must be <= "
+                         f"{_GRID_YZ}")
+    fused = epi is not None and impl == "sm90"
+    if fused:
+        x_scale, layer_scale, bias, relu, out, c = epi
+        bias = None if bias is None else bias.contiguous()
+        if out is None:
+            out = torch.empty(b, c, ro, co, dtype=torch.float32,
+                              device=x.device)
+        y, m_img = out, feats.channels_an_image("out", out, c, ro * co)
+    else:
+        y = torch.empty(b, m_tiles * t_m, ro, co, dtype=torch.float32,
+                        device=x.device)
+    if y.numel():
+        _launch(impl, x, deltas, entries, y, t_m=t_m, ro=ro, co=co,
+                stride=stride, epi=(
+                    (x_scale.data_ptr(), layer_scale,
+                     None if bias is None else bias.data_ptr(),
+                     int(relu), c, m_img) if fused
+                    else (None, 0.0, None, 0, 0, 0)))
+        launches_with_epilogue += int(fused)
+    return out.permute(0, 2, 3, 1) if fused else _unfused(y, epi)
+
+
+def _packed(x, deltas, entries, epi, int8_weights: bool, **kw
+            ) -> torch.Tensor:
+    """A call whose epilogue is checked, by device: the plain version on
+    CPU tensors, a launch otherwise."""
+    if x.device.type != "cpu":
+        return _on_cuda(x, deltas, entries, epi, int8_weights, **kw)
+    return _unfused(smm_conv_plain(x, deltas, entries, **kw), epi)
 
 
 def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
@@ -366,59 +431,10 @@ def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
     of C = m_tiles·t_m channels.  ``sm90`` applies it in its store, one
     launch and no raw sums (:data:`launches_with_epilogue`); after
     ``simt`` the ``int8_features`` epilogue runs."""
-    global launches_with_epilogue
-    _check("x", x, torch.float32, 4, x.device)
-    _check("deltas", deltas, torch.float32, 3, x.device)
-    _check("entries", entries, torch.int32, 4, x.device)
-    b, n_in, ri, ci = x.shape
-    m_tiles, n2, u_plus = deltas.shape
-    if n2 != n_in or entries.shape[:2] != (m_tiles, n_in) \
-            or entries.shape[3] != 4:
-        raise ValueError(f"operand shapes disagree: x {tuple(x.shape)}, "
-                         f"deltas {tuple(deltas.shape)}, entries "
-                         f"{tuple(entries.shape)}")
-    if stride < 1 or t_m < 1 or ro < 1 or co < 1 \
-            or (ro - 1) * stride >= ri or (co - 1) * stride >= ci:
-        raise ValueError(f"bad geometry: t_m={t_m} ro={ro} co={co} "
-                         f"stride={stride} for a {ri}x{ci} input")
-    _check_epilogue_args(x_scale, bias, relu, out)
-    m_out = m_tiles * t_m
-    c = _epilogue_channels(m_out, out)
-    if x_scale is not None:
-        feats.check_epilogue((b, c, ro, co), x.device, x_scale, bias, out)
-    impl = _resolve_impl(tuple(x.shape), tuple(deltas.shape), impl, t_m=t_m,
-                         ro=ro, co=co, stride=stride,
-                         int8_weights=int8_weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"smm_conv_cuda needs CUDA tensors, got x on "
-                         f"{x.device}")
-    if impl == "simt" and (b > _GRID_YZ or m_tiles > _GRID_YZ):
-        raise ValueError(f"batch {b} and m_tiles {m_tiles} must be <= "
-                         f"{_GRID_YZ}")
-    fused = x_scale is not None and impl == "sm90"
-    if fused:
-        bias = None if bias is None else bias.contiguous()
-        if out is None:
-            out = torch.empty(b, c, ro, co, dtype=torch.float32,
-                              device=x.device)
-        y, m_img = out, feats.channels_an_image("out", out, c, ro * co)
-    else:
-        y = torch.empty(b, m_out, ro, co, dtype=torch.float32,
-                        device=x.device)
-    if y.numel():
-        _launch(impl, x, deltas, entries, y, t_m=t_m, ro=ro, co=co,
-                stride=stride, epi=(
-                    (x_scale.data_ptr(), float(layer_scale),
-                     None if bias is None else bias.data_ptr(),
-                     int(bool(relu)), c, m_img) if fused
-                    else (None, 0.0, None, 0, 0, 0)))
-        launches_with_epilogue += int(fused)
-    if fused:
-        return out.permute(0, 2, 3, 1)
-    if x_scale is not None:
-        return feats.epilogue(y[:, :c], x_scale, layer_scale, bias,
-                              relu=relu, out=out)
-    return y
+    epi = _epilogue(x, deltas.shape[0] * t_m, ro, co, x_scale, layer_scale,
+                    bias, relu, out)
+    return _on_cuda(x, deltas, entries, epi, int8_weights, impl, t_m=t_m,
+                    ro=ro, co=co, stride=stride)
 
 
 def smm_conv_packed(x: torch.Tensor, deltas: torch.Tensor,
@@ -433,18 +449,10 @@ def smm_conv_packed(x: torch.Tensor, deltas: torch.Tensor,
     into ``out`` where given), the CUDA instance that :func:`pick_impl`
     names otherwise (:func:`smm_conv_cuda`, whose epilogue operands these
     are)."""
-    epi = dict(x_scale=x_scale, layer_scale=layer_scale, bias=bias,
-               relu=relu, out=out)
-    if x.device.type != "cpu":
-        return smm_conv_cuda(x, deltas, entries, t_m=t_m, ro=ro, co=co,
-                             stride=stride, int8_weights=int8_weights, **epi)
-    _check_epilogue_args(x_scale, bias, relu, out)
-    y = smm_conv_plain(x, deltas, entries, t_m=t_m, ro=ro, co=co,
-                       stride=stride)
-    if x_scale is None:
-        return y
-    return feats.epilogue(y[:, :_epilogue_channels(y.shape[1], out)],
-                          x_scale, layer_scale, bias, relu=relu, out=out)
+    epi = _epilogue(x, deltas.shape[0] * t_m, ro, co, x_scale, layer_scale,
+                    bias, relu, out)
+    return _packed(x, deltas, entries, epi, int8_weights, t_m=t_m, ro=ro,
+                   co=co, stride=stride)
 
 
 def smm_conv_batched(x: torch.Tensor, code: LayerCode, *, stride: int = 1,
@@ -466,25 +474,18 @@ def smm_conv_batched(x: torch.Tensor, code: LayerCode, *, stride: int = 1,
     or in a new tensor of M channels."""
     if stride < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
-    b, n_in, ri, ci = x.shape
+    _, n_in, ri, ci = x.shape
     m = code.shape[0]
     rk, ck = (code.shape[2], code.shape[3]) if len(code.shape) == 4 else (1, 1)
     ro, co = (ri - rk) // stride + 1, (ci - ck) // stride + 1
     if operands is None:
         operands = smm_operands_on(code, n_in, x.device)
     deltas, entries, meta = operands
-    kw = dict(t_m=meta["t_m"], ro=ro, co=co, stride=stride,
-              int8_weights=meta.get("int8_weights", False))
-    if x_scale is None:
-        _check_epilogue_args(x_scale, bias, relu, out)
-        return smm_conv_packed(x, deltas, entries, **kw)[:, :m]
-    if out is None:
-        out = torch.empty(b, m, ro, co, dtype=torch.float32, device=x.device)
-    elif out.dim() != 4 or out.shape[1] != m:
-        feats.check_epilogue((b, m, ro, co), x.device, x_scale, bias, out)
-    return smm_conv_packed(x, deltas, entries, x_scale=x_scale,
-                           layer_scale=layer_scale, bias=bias, relu=relu,
-                           out=out, **kw)
+    epi = _epilogue(x, deltas.shape[0] * meta["t_m"], ro, co, x_scale,
+                    layer_scale, bias, relu, out, m)
+    y = _packed(x, deltas, entries, epi, meta.get("int8_weights", False),
+                t_m=meta["t_m"], ro=ro, co=co, stride=stride)
+    return y if epi is not None else y[:, :m]
 
 
 def smm_conv(x: torch.Tensor, code: LayerCode, *,

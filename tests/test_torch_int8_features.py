@@ -235,28 +235,80 @@ def test_wrapper_rejects_a_bad_epilogue(y, x_scale, bias, match):
         ops.epilogue(y, x_scale, 0.5, bias)
 
 
-def test_smm_kernel_on_cpu_tensors_keeps_the_host_path(monkeypatch):
-    """CPU tensors on ``smm_kernel`` run ``_int_activations`` and
-    ``_finish`` as before: the kernels' wrapper is never called."""
-    rng = np.random.default_rng(0)
-    spec = codr.ModelSpec([codr.LayerSpec.conv(
-        rng.normal(size=(4, 3, 3, 3)).astype(np.float32),
-        activation="relu", name="c0")])
-    model = codr.compile(spec, codr.EncodeConfig(n_unique=16),
-                         backend="smm_kernel", device="cpu")
+def _conv(rng, m, n, k, **kw):
+    w = rng.normal(size=(m, n, k, k)).astype(np.float32)
+    w[rng.random(w.shape) > 0.5] = 0
+    return codr.LayerSpec.conv(w, rng.normal(size=m).astype(np.float32),
+                               activation="relu", **kw)
+
+
+def _cpu_net(net: str):
+    """``(spec, x, pads, slices)``: a VGG-like chain (VALID, a padded 3×3,
+    a pooling between layers) or an inception module (a 1×1, 3×3 and 5×5
+    on their borders after their reduces, a pooling branch), with the
+    pads its feature calls take and the channel offsets of its branches'
+    slices."""
+    rng = np.random.default_rng(3)
+    if net == "chain":
+        steps = [_conv(rng, 4, 3, 3, name="c0"),
+                 _conv(rng, 8, 4, 3, padding=1, name="c1"),
+                 codr.PoolSpec(2, 2), _conv(rng, 8, 8, 3, name="c2")]
+        x = _inputs("whole_pixels", (2, 12, 12, 3))
+        return codr.ModelSpec(steps), x, [0, 1, 0], []
+    c = [_conv(rng, m, n, k, padding=k // 2, name=f"3a.{i}")
+         for i, (m, n, k) in enumerate(((8, 24, 1), (8, 24, 1), (16, 8, 3),
+                                        (4, 24, 1), (8, 4, 5), (8, 24, 1)))]
+    spec = codr.ModelSpec([codr.ModuleSpec(
+        ([c[0]], [c[1], c[2]], [c[3], c[4]], [codr.PoolSpec(3, 1, 1), c[5]]),
+        name="3a")])
+    return spec, _inputs("relu_out", (2, 10, 10, 24)), [0, 1, 2], \
+        [0, 8, 24, 32]
+
+
+@pytest.mark.parametrize("net", ["chain", "module"])
+def test_smm_kernel_on_cpu_tensors_runs_the_kernel_wrappers(net,
+                                                            monkeypatch):
+    """CPU tensors on ``smm_kernel`` take the card's path: the
+    ``int8_features`` wrapper for the features and the poolings,
+    ``smm_conv_batched`` with the layer's epilogue (a branch's last layer
+    into its channel slice of the module's output), no host read; the
+    wrappers run their plain versions, and the output is ``smm``'s
+    exactly."""
+    from repro_torch.kernels.smm_conv import ops as smm_ops
+    spec, x, pads, slices = _cpu_net(net)
+    cfg = codr.EncodeConfig(n_unique=16)
+    want = codr.compile(spec, cfg, backend="smm", device="cpu").run(x)
+    model = codr.compile(spec, cfg, backend="smm_kernel", device="cpu")
+    calls = {"int8_features": [], "max_pool": [], "smm_conv_batched": []}
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def call(*a, **k):
+            calls[name].append((a, k))
+            return real(*a, **k)
+        monkeypatch.setattr(mod, name, call)
+    spy(ops, "int8_features")
+    spy(ops, "max_pool")
+    spy(smm_ops, "smm_conv_batched")
 
     def refuse(*a, **k):
-        raise AssertionError("the CPU path reached the kernels' wrapper")
-    monkeypatch.setattr(ops, "int8_features", refuse)
-    monkeypatch.setattr(ops, "epilogue", refuse)
-    x = torch.from_numpy(_inputs("whole_pixels", (2, 8, 8, 3)))
-    layer = model.model.layers[0]
-    xi, s = backends._int_activations(x)
-    from repro_torch.kernels.smm_conv import smm_conv_batched
-    y = smm_conv_batched(xi.permute(0, 3, 1, 2).contiguous(), layer.code,
-                         operands=layer.smm_operands())
-    want = backends._finish(layer, y.permute(0, 2, 3, 1) * (layer.scale * s))
-    assert torch.equal(model.run(x), want)
+        raise AssertionError("smm_kernel read the host path")
+    monkeypatch.setattr(backends, "_int_activations", refuse)
+    before = (ops.launches, smm_ops.launches)
+    got = model.run(x)
+    assert torch.equal(got, want)
+    assert (ops.launches, smm_ops.launches) == before
+    assert [a[1] for a, _ in calls["int8_features"]] == pads
+    assert len(calls["max_pool"]) == 1
+    convs = [k for _, k in calls["smm_conv_batched"]]
+    assert len(convs) == len(spec.layers)
+    assert all(k["x_scale"].shape == (1,) and k["relu"] for k in convs)
+    outs = [k["out"] for k in convs if k["out"] is not None]
+    plane = x.shape[1] * x.shape[2]
+    assert [o.storage_offset() // plane for o in outs] == slices
+    assert all(o.untyped_storage().data_ptr()
+               == got.untyped_storage().data_ptr() for o in outs)
 
 
 # -- on the card -------------------------------------------------------------

@@ -148,6 +148,22 @@ def test_cpu_tensors_never_reach_the_kernel(rng):
         tops.smm_conv_cuda(x, deltas, entries, t_m=4, ro=6, co=6)
 
 
+def test_stream_buffer_is_kept_per_stream_and_grows_zeroed():
+    """``_build.stream_buffer`` (the sm90 scratch, the stats accumulator):
+    one buffer per (device, stream), reused while it holds enough, made
+    anew and zero when a call needs more."""
+    from repro_torch.kernels import _build
+    bufs, cpu = {}, torch.device("cpu")
+    a = _build.stream_buffer(bufs, cpu, 1, 8, torch.int32)
+    assert a.shape == (8,) and not a.any()
+    a.fill_(5)
+    assert _build.stream_buffer(bufs, cpu, 1, 4, torch.int32) is a
+    b = _build.stream_buffer(bufs, cpu, 2, 4, torch.int32)
+    assert b is not a and not b.any()
+    c = _build.stream_buffer(bufs, cpu, 1, 16, torch.int32)
+    assert c.shape == (16,) and not c.any() and bufs[(None, 1)] is c
+
+
 def test_kernel_caps_is_a_literal_with_the_registry_keys():
     assert {"kinds", "integer_activations", "description"} <= set(
         tops.KERNEL_CAPS)

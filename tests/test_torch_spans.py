@@ -112,8 +112,9 @@ def test_the_buffer_stays_bounded(monkeypatch):
     assert spans.MAX_SPANS == 1_000_000
 
 
-def test_a_tiny_smm_kernel_model_records_its_features_and_reads():
-    model, x = _model("smm_kernel"), _images()
+def test_a_tiny_smm_model_records_its_features_and_reads():
+    """The ``smm`` lane's host path reads two scalars a layer."""
+    model, x = _model("smm"), _images()
     got = _profiled(lambda: model.run(x))
     names = [s.name for s in got]
     assert names.count("codr.run") == 1 and names.count("codr.layer") == 2
@@ -138,9 +139,10 @@ def test_a_tiled_model_records_no_features_and_no_reads():
 
 def test_a_host_read_span_holds_the_profilers_event_for_its_read():
     """The shared clock: under the benchmark's own recorder, each
-    ``codr.host_read`` span holds the profiler's host event of its read."""
+    ``codr.host_read`` span holds the profiler's host event of its read
+    (on ``smm``, the lane that reads)."""
     from bench import trace as tr
-    model, x = _model("smm_kernel"), _images()
+    model, x = _model("smm"), _images()
     _, trace = tr.record(lambda: model.run(x), sync=lambda: None)
     reads = [s for s in spans.spans() if s.name == "codr.host_read"]
     assert len(reads) == 4
@@ -304,9 +306,10 @@ def test_the_span_table_tool_lays_a_tiny_run_out_by_layer(capsys):
     assert span_table.main(["--workload", "vgg16.b64", "--seed", "7",
                             "--seconds", "0.3", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["correct"] and out["metrics"]["cnn_host_reads"] == 4.0
-    # the tiny chain: two blocks of one layer each, two reads a layer
+    # the tiny chain, two blocks of one layer each, on the wrappers'
+    # plain versions: no read to the host, as on the card
+    assert out["correct"] and out["metrics"]["cnn_host_reads"] == 0.0
     assert [(r["layer"], r["reads"]) for r in out["layers"]] == \
-        [("conv0", 2.0), ("conv1", 2.0)]
+        [("conv0", 0.0), ("conv1", 0.0)]
     assert all(r["host_self_ms"] > 0 for r in out["layers"])
     assert set(out["span_cost"]) == {"off_us", "on_us"}
