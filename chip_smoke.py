@@ -49,12 +49,18 @@ calls:
   that bound.  At the long prompts both instances are timed.
 
 On the CNN path each layer's feature path runs as the ``int8_features``
-kernels (stats, quantize) and its epilogue in ``smm_conv`` ``sm90``'s
-store (their launches per request held beside ``smm_conv``'s, with the
-epilogue and without a separate one; in the layer-by-layer replay each
-layer's features and the two-kernel epilogue held to their plain
-versions, the fused call held to ``smm_conv`` then the ``int8_features``
-epilogue and timed beside it and the layer's bound);
+kernels (stats, and quantize_nhwc at the first layer) and, in
+``smm_conv`` ``sm90``, the quantization of the later layers' raw
+features in its phase 1b and the epilogue in its store (their launches
+per request held beside ``smm_conv``'s, with the epilogue, quantizing,
+and without a separate quantize or epilogue; in the layer-by-layer
+replay each layer's features and the two-kernel epilogue held to their
+plain versions, the fused call held to ``smm_conv`` then the
+``int8_features`` epilogue, the quantizing call to the ``int8_features``
+quantize then ``smm_conv``, each timed beside the two launches it
+replaces and the layer's bound); ``quantize_phase`` times the quantizing
+call at ``vgg16.b64``'s in-block layers (batch 64) against the quantize
+and ``smm_conv`` launches, ``smm_conv`` alone and the bound;
 ``features_phase`` then holds each ``int8_features`` kernel to its plain
 version at ``vgg16.b64``'s shapes (batch 64: conv1, and the block-first
 inputs of ``quantize_nhwc``) and times it there against its bytes' bound
@@ -585,6 +591,59 @@ def _fused_row(label, layer, q, scale, out=None, out_two=None) -> dict:
     return row
 
 
+def _quant_row(label, layer, x, scale) -> dict:
+    """``layer`` on raw features ``x`` (NCHW, a ReLU's output) at their
+    scale: the sm90 launch that quantizes them in its phase 1b (the
+    epilogue in its store), held with ``torch.equal`` to the
+    ``int8_features`` quantize then ``smm_conv``, one launch counted with
+    the quantization; timed by CUDA events beside those two launches,
+    ``smm_conv`` alone on the whole numbers and the bytes' bound (x
+    float32 in once, the packed operands, the float32 output once)."""
+    import torch
+
+    from repro_torch.kernels.int8_features import ops as feat_ops
+    from repro_torch.kernels.smm_conv import ops
+    kw = dict(stride=layer.stride, operands=layer.smm_operands(),
+              x_scale=scale, layer_scale=layer.scale,
+              bias=None if layer.bias is None else layer.bias_device,
+              relu=layer.activation == "relu")
+    q = feat_ops.quantize(x.permute(0, 2, 3, 1), scale)
+
+    def quantizing():
+        return ops.smm_conv_batched(x, layer.code, raw_features=True, **kw)
+
+    def two():
+        return ops.smm_conv_batched(
+            feat_ops.quantize(x.permute(0, 2, 3, 1), scale), layer.code,
+            **kw)
+
+    def conv_alone():
+        return ops.smm_conv_batched(q, layer.code, **kw)
+    before = ops.launches_with_quantize
+    got = quantizing()
+    if ops.launches_with_quantize != before + 1:
+        fail(f"{label}: the raw-features call did not quantize in sm90's "
+             f"phase 1b")
+    if not torch.equal(got, two()):
+        fail(f"{label}: smm_conv quantizing in phase 1b differs from the "
+             f"int8_features quantize then smm_conv")
+    deltas, entries, _ = layer.smm_operands()
+    b, ro, co, m = got.shape
+    b_ms, b_by = bound(4 * (x.numel() + deltas.numel() + entries.numel()
+                            + b * m * ro * co),
+                       2 * b * layer.stats().n_nonzero * ro * co, INT8_TOPS)
+    row = {"quantizing_ms": cuda_ms(quantizing, 5),
+           "quantize_then_conv_ms": cuda_ms(two, 5),
+           "conv_alone_ms": cuda_ms(conv_alone, 5),
+           "quant_bound_ms": b_ms, "quant_bound_by": b_by}
+    say(f"{label}: quantizing in phase 1b {row['quantizing_ms']:.4f} ms, "
+        f"int8_features quantize + smm_conv "
+        f"{row['quantize_then_conv_ms']:.4f} ms, smm_conv alone on whole "
+        f"numbers {row['conv_alone_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}) [{SMI}]")
+    return row
+
+
 def cnn_path(args) -> dict:
     import numpy as np
     import torch
@@ -618,15 +677,17 @@ def cnn_path(args) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     ops.launches = ops.launches_with_epilogue = 0
+    ops.launches_with_quantize = 0
     ops.launches_by_impl.update(dict.fromkeys(ops.IMPLS, 0))
     feat_ops.launches = 0
     feat_ops.launches_by_impl.update(dict.fromkeys(feat_ops.IMPLS, 0))
     outs, req_ms, per_request, feat_per_request = [], [], [], []
-    fused_per_request = []
+    fused_per_request, quant_per_request = [], []
     for x in images:
         before = dict(ops.launches_by_impl)
         feat_before = dict(feat_ops.launches_by_impl)
         fused_before = ops.launches_with_epilogue
+        quant_before = ops.launches_with_quantize
         t0 = time.perf_counter()
         y = compiled.run(x)
         torch.cuda.synchronize()
@@ -636,19 +697,21 @@ def cnn_path(args) -> dict:
         feat_per_request.append({i: feat_ops.launches_by_impl[i]
                                  - feat_before[i] for i in feat_ops.IMPLS})
         fused_per_request.append(ops.launches_with_epilogue - fused_before)
+        quant_per_request.append(ops.launches_with_quantize - quant_before)
         outs.append(y)
     launches = ops.launches
     by_impl = dict(ops.launches_by_impl)
-    # the feature path: stats and quantize a layer, the epilogue in
-    # smm_conv sm90's store; the first layer's input is NHWC-contiguous
-    # (the transpose), the rest NCHW storage behind the NHWC view
+    # the feature path: stats a layer, the epilogue in smm_conv sm90's
+    # store; the first layer's input is NHWC-contiguous (quantize_nhwc),
+    # the rest NCHW storage behind the NHWC view: raw features, which
+    # sm90 quantizes in its phase 1b
     n_layers = len(spec)
-    feat_want = {"stats": n_layers, "quantize": n_layers - 1,
-                 "quantize_nhwc": 1, "quantize_pad": 0, "max_pool": 0,
-                 "epilogue": 0}
+    feat_want = {"stats": n_layers, "quantize": 0, "quantize_nhwc": 1,
+                 "quantize_pad": 0, "max_pool": 0, "epilogue": 0}
     say(f"cnn int8_features launches per request {feat_per_request} "
         f"beside smm_conv's {per_request}, {fused_per_request} of them "
-        f"with the epilogue in the store; in all {feat_ops.launches} "
+        f"with the epilogue in the store, {quant_per_request} quantizing "
+        f"in phase 1b; in all {feat_ops.launches} "
         f"{dict(feat_ops.launches_by_impl)}")
     if any(r != feat_want for r in feat_per_request):
         fail(f"int8_features launches {feat_per_request} per request, "
@@ -656,6 +719,9 @@ def cnn_path(args) -> dict:
     if any(n != n_layers for n in fused_per_request):
         fail(f"smm_conv launches with the epilogue {fused_per_request} per "
              f"request, expected {n_layers}")
+    if any(n != n_layers - 1 for n in quant_per_request):
+        fail(f"smm_conv launches quantizing in phase 1b {quant_per_request} "
+             f"per request, expected {n_layers - 1}")
     peak = torch.cuda.max_memory_allocated()
     for i, ms in enumerate(req_ms):
         say(f"cnn request {i}: batch {batch}, {ms:.3f} ms"
@@ -772,6 +838,10 @@ def cnn_path(args) -> dict:
             fail(f"cnn {layer.name}: int8_features epilogue differs from "
                  f"the plain version")
         row.update(_fused_row(f"cnn {layer.name}", layer, xi, s))
+        if x.permute(0, 3, 1, 2).is_contiguous() and not layer.padding:
+            # an in-block layer: the main path hands smm_conv x itself
+            row.update(_quant_row(f"cnn {layer.name}", layer,
+                                  x.permute(0, 3, 1, 2), s))
         x = compiled.backend.conv(layer, x)
         if not torch.equal(x, yf):
             fail(f"cnn {layer.name}: the layer's kernels, run one by one, "
@@ -841,10 +911,21 @@ def cnn_path(args) -> dict:
         f"{sums['library_tf32_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
         f"with the epilogue fused {sums['fused_ms']:.4f} ms, smm_conv + "
         f"int8_features epilogue {sums['two_kernel_ms']:.4f} ms [{SMI}]")
+    quant = {k: sum(r[k] for r in rows if k in r)
+             for k in ("quantizing_ms", "quantize_then_conv_ms",
+                       "conv_alone_ms", "quant_bound_ms")}
+    say(f"cnn the {n_layers - 1} in-block launches of one request: "
+        f"quantizing in phase 1b {quant['quantizing_ms']:.4f} ms, "
+        f"int8_features quantize + smm_conv "
+        f"{quant['quantize_then_conv_ms']:.4f} ms, smm_conv alone "
+        f"{quant['conv_alone_ms']:.4f} ms, bound "
+        f"{quant['quant_bound_ms']:.4f} ms [{SMI}]")
     return compiled, dict(SMM_KERNEL, launches=launches,
                           launches_by_impl=by_impl,
                 launches_per_request=per_request,
                 launches_with_epilogue_per_request=fused_per_request,
+                launches_with_quantize_per_request=quant_per_request,
+                in_block=quant,
                 int8_features_launches_per_request=feat_per_request,
                 max_abs_err=max_err,
                 **sums, bound_ms=b_ms, bound_by=b_by,
@@ -857,6 +938,38 @@ def cnn_path(args) -> dict:
                 per_shape=rows, published=published,
                 main_path={"request_ms": req_ms, "encode_s": encode_s,
                            "peak_memory_bytes": peak, "profile": profile})
+
+
+def quantize_phase(args, compiled, batch: int = 64) -> dict:
+    """``smm_conv`` sm90 quantizing raw features in its phase 1b at
+    ``vgg16.b64``'s in-block layers (conv1_2, conv2_2, conv3_2, conv3_3 at
+    their input planes 226², 114², 60², 58², batch 64; the chain's layers,
+    ReLU features drawn from the seed): each layer's :func:`_quant_row`."""
+    import torch
+
+    from repro_torch.kernels.int8_features import ops as feat_ops
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    rows = {}
+    for index, hw in ((1, 226), (3, 114), (5, 60), (6, 58)):
+        layer = compiled.model.layers[index]
+        x = torch.relu(torch.randn(batch, layer.code.shape[1], hw, hw,
+                                   device="cuda", generator=g)) * 30
+        scale = feat_ops.feature_scale(x.permute(0, 2, 3, 1))
+        rows[layer.name] = _quant_row(
+            f"quantize phase {layer.name} (batch {batch}, {hw}x{hw})", layer,
+            x, scale)
+        del x
+        torch.cuda.empty_cache()
+    sums = {k: sum(r[k] for r in rows.values())
+            for k in ("quantizing_ms", "quantize_then_conv_ms",
+                      "conv_alone_ms", "quant_bound_ms")}
+    say(f"quantize phase, the four in-block layers of a vgg16.b64 request: "
+        f"quantizing in phase 1b {sums['quantizing_ms']:.4f} ms, "
+        f"int8_features quantize + smm_conv "
+        f"{sums['quantize_then_conv_ms']:.4f} ms, smm_conv alone "
+        f"{sums['conv_alone_ms']:.4f} ms, bound {sums['quant_bound_ms']:.4f}"
+        f" ms [{SMI}]")
+    return {"per_layer": rows, **sums}
 
 
 def features_phase(args, batch: int = 64, hw: int = 226,
@@ -4678,6 +4791,10 @@ def main() -> int:
     cnn_model, row = cnn_path(args)
     kernels = [row]
     say(f"cnn path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    row["quantize_in_phase_1b"] = quantize_phase(args, cnn_model)
+    torch.cuda.empty_cache()
+    say(f"quantize phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     row["int8_features"] = features_phase(args)
     torch.cuda.empty_cache()

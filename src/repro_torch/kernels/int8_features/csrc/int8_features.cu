@@ -22,7 +22,10 @@
 //             storage behind an NHWC view (a flat map) or NHWC-contiguous
 //             (a block's first layer: transposed through shared memory).
 //             With scale 1 the map returns x itself, so the exact case
-//             needs no branch.
+//             needs no branch.  The main path runs the flat map only
+//             before smm_conv's simt instance: the sm90 instance applies
+//             the same arithmetic (../../csrc/feature_quant.cuh) to a
+//             layer's raw features in its own phase 1b.
 //   quantize_pad  the same numbers from NCHW storage into the interior of
 //             a plane with a zero border of `pad` pixels (the SAME
 //             padding of the next convolution), border written too: a
@@ -62,6 +65,7 @@
 
 #include <cstdint>
 
+#include "feature_quant.cuh"    // quant
 #include "layer_epilogue.cuh"   // finish, epilogue_scale
 
 namespace {
@@ -136,12 +140,6 @@ __global__ void __launch_bounds__(kThreads)
   float s = 1.0f;
   if (!(all && a <= 127.0f) && a > 0.0f) s = __fdiv_rn(a, 127.0f);
   *scale = s;
-}
-
-__device__ __forceinline__ float quant(float v, float s) {
-  const float q = rintf(__fdiv_rn(v, s));
-  // NaN fails both tests and stays NaN, as torch.clamp keeps it
-  return q < -127.0f ? -127.0f : (q > 127.0f ? 127.0f : q);
 }
 
 __device__ __forceinline__ float4 quant4(float4 v, float s) {

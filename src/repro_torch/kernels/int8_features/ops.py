@@ -15,7 +15,11 @@ back to the host.  Here they are three launches a layer around
   kernel (one pass: the int8 features in the NCHW layout ``smm_conv``
   takes; ``quantize_nhwc`` where ``x`` is NHWC-contiguous, a transpose
   through shared memory; ``quantize_pad`` where the next convolution
-  pads: the interior of a plane with a zero border, border written too);
+  pads: the interior of a plane with a zero border, border written too).
+  Where a layer's input is a layer's output with no border, the
+  ``smm_kernel`` lane launches :func:`feature_scale` alone and hands
+  ``smm_conv`` the raw features, whose ``sm90`` instance quantizes them
+  in its phase 1b with the same numbers (``csrc/feature_quant.cuh``);
 * :func:`max_pool` — the lane's max pooling of NCHW storage (a module's
   int8 features, the poolings between modules), no indices: the
   ``max_pool`` kernel, a block a few planes staged in shared memory;

@@ -7,7 +7,10 @@
 // window that fits shared memory.  Same operands and function as
 // smm_conv.cu (the `simt` instance, which keeps every other shape):
 //
-//   x       (B, N, RI, CI)        float32, integer-valued input features
+//   x       (B, N, RI, CI)        float32, integer-valued input features;
+//                                 or, with the epilogue and quantize_x, a
+//                                 layer's raw features, which phase 1b
+//                                 quantizes against x_scale
 //   deltas  (m_tiles, N, U+1)     float32 Δs of each vector's sorted unique
 //                                 weights (0-padded)
 //   entries (m_tiles, N, L, 4)    int32 (u, m_local, r, c) per repetition;
@@ -83,11 +86,31 @@
 //   sums back and wrote them again: 6.3 GB of a vgg16.b64 request, 24% of
 //   its device time.  Without the operands the other instance writes the
 //   raw sums of every m_tiles*t_m row, as direct calls take them.
-// * x outside int8.  _int_activations guarantees int8 on the main path,
+// * The layer's quantization in phase 1b.  With the epilogue operands and
+//   quantize_x, x is the layer's raw float32 features and phase 1b
+//   quantizes each value against the device scale x_scale, with the
+//   int8_features quantize pass's numbers (../../csrc/feature_quant.cuh
+//   holds the quotient for both), before it converts it to int8: the
+//   same float32 bytes read, and the quantize pass's whole-number float32
+//   copy (written and read again: 3.44 GB of a vgg16.b64 request, 17% of
+//   its device time) is gone.  The quotient is quotient_rcp()'s, RN(v / s)
+//   from the reciprocal taken once and two FMA corrections, for a scale
+//   in its range, else __fdiv_rn's: the first design divided with
+//   __fdiv_rn, whose per-value branch to its slow path serialised the
+//   unrolled loop (conv1_2 at batch 64: 1.75 ms, 0.90 over the
+//   convolution alone and 0.30 over the quantize pass and the convolution
+//   apart).  to_s8q() takes the quotient to its int8 byte, rint and clamp
+//   by a min, a max and one add (no conversion instruction).  Uniform
+//   tests of the launch pick the loop; without quantize_x x is converted
+//   as it is.
+// * x outside int8.  The feature path guarantees int8 on the main path,
 //   but a direct call does not, and the wrapper cannot look without a host
 //   sync.  So every converted value (and every decoded weight) is checked
 //   and a value outside [-128, 127] (NaN included) executes __trap(): the
 //   launch fails loudly at the next sync and never returns a wrong sum.
+//   On raw features the quotient keeps a NaN (and an infinite feature
+//   makes the scale infinite, so inf / inf is NaN), and to_s8q() traps on
+//   it, so a raw NaN or infinity stops the launch as well.
 //
 // What the card changed (chip_smoke.py's per-layer rows and cut-down
 // variants timed on an H100 80GB HBM3 at 700 W; PERF.md section 6):
@@ -128,6 +151,7 @@
 
 #include <type_traits>
 
+#include "feature_quant.cuh"    // quotient_rcp, quotient_rcp_takes
 #include "layer_epilogue.cuh"   // finish, epilogue_scale
 
 namespace {
@@ -164,6 +188,7 @@ struct Epi {
   const float* bias;      // m_rows floats, or null
   double layer_scale;
   int relu;
+  int quant;              // x is raw features: phase 1b quantizes them
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -268,6 +293,16 @@ __device__ __forceinline__ uint32_t to_s8(float v) {
   return static_cast<uint32_t>(__float2int_rn(v)) & 0xFFu;
 }
 
+// int8 of clamp(rint(q), -127, 127), quant()'s numbers for the quotient
+// q = v / s; a NaN stops the launch.  Past the clamp, c + 1.5 * 2^23 lies
+// in [2^23, 2^24), where a float's unit is 1: its last byte is rint(c),
+// half to even, in two's complement
+__device__ __forceinline__ uint32_t to_s8q(float q) {
+  if (isnan(q)) __trap();
+  const float c = fminf(fmaxf(q, -127.0f), 127.0f);
+  return __float_as_uint(__fadd_rn(c, 0x1.8p23f)) & 0xFFu;
+}
+
 // one generation of a grid-wide barrier over bar[0] (arrivals) and bar[1]
 // (generation): the last block to arrive sets the count back to 0 and
 // moves the generation on, so the words are ready for the next launch
@@ -368,12 +403,23 @@ __device__ void decode_weights(const Geo& g, const float* __restrict__ deltas,
 // phase 1b: x (B, N, RI, CI) float32 -> xs int8, [b][chunk][k half][pixel]
 // [16 channels]: a thread a (image, chunk, V pixels), 32 loads of V floats
 // along the pixels (coalesced; V = 4 where the plane holds whole 16-byte
-// pieces), 2 V 16-byte stores; channels past N are zero.  Every value is
-// checked: one outside int8 stops the launch.
-template <int V>
+// pieces), 2 V 16-byte stores; channels past N are zero.  kQuant: x holds
+// raw features, each value quantized against the scale s as it is
+// converted (to_s8q() of the quotient: kRcp quotient_rcp()'s with y =
+// 1 / s, kDiv __fdiv_rn's).  Every value is checked: one outside int8
+// (x as is) or a NaN quotient stops the launch.
+enum Quant { kAsIs, kRcp, kDiv };
+
+template <int V, Quant kQuant>
 __device__ void convert_x(const Geo& g, int batch, const float* __restrict__ x,
-                          uint8_t* xs) {
+                          float s, uint8_t* xs) {
   using VecT = typename std::conditional<V == 4, float4, float>::type;
+  const float y = kQuant == kRcp ? __frcp_rn(s) : 1.0f;
+  auto to_int = [&](float v) {
+    if constexpr (kQuant == kRcp) return to_s8q(quotient_rcp(v, s, y));
+    if constexpr (kQuant == kDiv) return to_s8q(__fdiv_rn(v, s));
+    return to_s8(v);
+  };
   const int plane = g.ri * g.ci;
   const int groups = plane / V;
   const long long tasks = (long long)batch * g.chunks * groups;
@@ -404,7 +450,8 @@ __device__ void convert_x(const Geo& g, int batch, const float* __restrict__ x,
     for (int e = 0; e < V; ++e) {
       uint32_t r[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int k = 0; k < 32; ++k) r[k / 4] |= to_s8(v[k][e]) << (8 * (k % 4));
+      for (int k = 0; k < 32; ++k)
+        r[k / 4] |= to_int(v[k][e]) << (8 * (k % 4));
       dst[e] = make_uint4(r[0], r[1], r[2], r[3]);
       dst[plane + e] = make_uint4(r[4], r[5], r[6], r[7]);
     }
@@ -426,11 +473,25 @@ smm_conv_sm90_kernel(const float* __restrict__ x,
   uint8_t* xs = scratch + g.xs_off;
 
   decode_weights(g, deltas, entries, w, smem);
-  if (g.ri * g.ci % 4 == 0 &&
-      (reinterpret_cast<uintptr_t>(x) & 15u) == 0)
-    convert_x<4>(g, batch, x, xs);
-  else
-    convert_x<1>(g, batch, x, xs);
+  // uniform: the launch's flag, x's alignment and its one scale
+  const bool vec4 = g.ri * g.ci % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+  const float s = kEpi && epi.quant ? *epi.x_scale : 1.0f;
+  if (!(kEpi && epi.quant)) {
+    if (vec4)
+      convert_x<4, kAsIs>(g, batch, x, s, xs);
+    else
+      convert_x<1, kAsIs>(g, batch, x, s, xs);
+  } else if (quotient_rcp_takes(s)) {
+    if (vec4)
+      convert_x<4, kRcp>(g, batch, x, s, xs);
+    else
+      convert_x<1, kRcp>(g, batch, x, s, xs);
+  } else if (vec4) {
+    convert_x<4, kDiv>(g, batch, x, s, xs);
+  } else {
+    convert_x<1, kDiv>(g, batch, x, s, xs);
+  }
   grid_barrier(reinterpret_cast<unsigned*>(scratch));
 
   const int tid = threadIdx.x;
@@ -659,9 +720,11 @@ cudaError_t launch(const float* x, const float* deltas, const int* entries,
 // scratch_bytes, its first 8 bytes zero before the first launch on a
 // stream (the barrier words; every launch leaves them ready for the next).
 // x_scale null: out (B, m_tiles * t_m, RO, CO) takes the raw sums, and
-// layer_scale, bias, relu, m_rows and m_img are not read.  Else out takes
-// the layer's output in channels 0 .. m_rows - 1 (m_rows <= m_tiles * t_m)
-// of m_img an image (m_img >= m_rows); bias null or m_rows floats.
+// layer_scale, bias, relu, m_rows, m_img and quantize_x are not read.
+// Else out takes the layer's output in channels 0 .. m_rows - 1 (m_rows <=
+// m_tiles * t_m) of m_img an image (m_img >= m_rows); bias null or m_rows
+// floats; quantize_x 1: x is raw features, quantized against x_scale in
+// phase 1b (0: x is whole numbers already).
 extern "C" int smm_conv_sm90_launch(const float* x, const float* deltas,
                                     const int* entries, float* out,
                                     void* scratch, long long scratch_bytes,
@@ -670,7 +733,7 @@ extern "C" int smm_conv_sm90_launch(const float* x, const float* deltas,
                                     int t_m, int ro, int co,
                                     const float* x_scale, double layer_scale,
                                     const float* bias, int relu, int m_rows,
-                                    int m_img, void* stream) {
+                                    int m_img, int quantize_x, void* stream) {
   if (batch < 1 || n_in < 1 || m_tiles < 1 || t_m < 1 || u_plus < 1 ||
       l_max < 1 || ro < 1 || co < 1 || ro > ri || co > ci)
     return cudaErrorInvalidValue;
@@ -726,7 +789,8 @@ extern "C" int smm_conv_sm90_launch(const float* x, const float* deltas,
       scratch_bytes < need)
     return cudaErrorInvalidValue;
   g.n_tiles = static_cast<int>(tiles);
-  const Epi e = {x_scale, bias, layer_scale, relu};
+  const Epi e = {x_scale, bias, layer_scale, relu,
+                 x_scale != nullptr && quantize_x != 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_scale != nullptr) {
     if (wm == 2)

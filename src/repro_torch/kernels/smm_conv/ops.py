@@ -32,6 +32,15 @@ raw sums (:data:`launches_with_epilogue` counts those launches); ``simt``
 has no such store and is followed by the ``int8_features`` epilogue
 launch.  Without them a call returns the raw sums, as before.
 
+With ``raw_features`` as well, ``x`` is a layer's raw float32 features
+(NCHW storage) rather than int8 features, and the call quantizes them
+against that scale (the ``int8_features`` ``quantize`` arithmetic, bit
+for bit): ``sm90`` in its phase 1b, as it converts ``x`` to int8, so one
+launch reads the raw features and writes the layer's output
+(:data:`launches_with_quantize` counts those launches); before ``simt``,
+and on CPU tensors, the ``int8_features`` ``quantize`` runs first, then
+the call as without.
+
 The rule is :func:`pick_impl`.  ``impl=`` of :func:`smm_conv_cuda`
 forces one instance (the tests and ``chip_smoke.py`` use it); forcing
 ``"sm90"`` on a shape it does not take raises ``ValueError``.  Nothing
@@ -61,7 +70,8 @@ from repro_torch.kernels.int8_features import ops as feats
 from repro_torch.kernels.smm_conv.ref import smm_conv_plain
 
 __all__ = ["KERNEL_CAPS", "IMPLS", "SOURCES", "launches", "launches_by_impl",
-           "launches_with_epilogue", "pack_smm_operands", "smm_operands_on",
+           "launches_with_epilogue", "launches_with_quantize",
+           "pack_smm_operands", "smm_operands_on",
            "sm90_plan", "sm90_refusal", "pick_impl", "load_kernel",
            "smm_conv_cuda", "smm_conv_packed", "smm_conv_batched",
            "smm_conv"]
@@ -94,6 +104,7 @@ _GRID_YZ = 65535
 launches = 0          # kernel launches since the count was last set to 0
 launches_by_impl = dict.fromkeys(IMPLS, 0)   # the same count, by instance
 launches_with_epilogue = 0   # sm90 launches that applied the epilogue
+launches_with_quantize = 0   # of them, those that quantized x in phase 1b
 
 
 def pack_smm_operands(code: LayerCode, n_in: int
@@ -239,7 +250,7 @@ def load_kernel(impl: str):
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                        + [ctypes.c_int] * 10
                        + [ctypes.c_void_p, ctypes.c_double, ctypes.c_void_p]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -280,17 +291,18 @@ def _resolve_impl(x_shape, deltas_shape, impl, **kw) -> str:
 
 
 def _epilogue(x, m_out: int, ro: int, co: int, x_scale, layer_scale, bias,
-              relu, out, m: int | None = None) -> tuple | None:
+              relu, out, m: int | None = None,
+              raw_features: bool = False) -> tuple | None:
     """A call's epilogue operands, checked once whichever entry takes
-    them: None for the raw sums (bias, relu and out need x_scale), else
-    ``(x_scale, layer_scale, bias, relu, out, c)``, ``c`` the channels
-    written (``feats.check_epilogue``'s shape): ``m`` where given, else
-    ``out``'s where it is NCHW with 1 .. ``m_out`` of them, else
-    ``m_out``."""
+    them: None for the raw sums (bias, relu, out and raw features need
+    x_scale), else ``(x_scale, layer_scale, bias, relu, out, c)``, ``c``
+    the channels written (``feats.check_epilogue``'s shape): ``m`` where
+    given, else ``out``'s where it is NCHW with 1 .. ``m_out`` of them,
+    else ``m_out``."""
     if x_scale is None:
-        if bias is not None or relu or out is not None:
-            raise ValueError("bias, relu and out belong to the layer's "
-                             "epilogue: pass x_scale with them")
+        if bias is not None or relu or out is not None or raw_features:
+            raise ValueError("bias, relu, out and raw_features belong to "
+                             "the layer's epilogue: pass x_scale with them")
         return None
     if m is None:
         m = (out.shape[1] if out is not None and out.dim() == 4
@@ -298,6 +310,14 @@ def _epilogue(x, m_out: int, ro: int, co: int, x_scale, layer_scale, bias,
     feats.check_epilogue((x.shape[0], m, ro, co), x.device, x_scale, bias,
                          out)
     return x_scale, float(layer_scale), bias, bool(relu), out, m
+
+
+def _quantized(x: torch.Tensor, epi: tuple) -> torch.Tensor:
+    """Raw features ``x`` (NCHW) as int8 features, contiguous NCHW: the
+    ``int8_features`` ``quantize`` against the epilogue's scale (its plain
+    version on CPU tensors), what precedes ``simt`` and the plain
+    version."""
+    return feats.quantize(x.permute(0, 2, 3, 1), epi[0])
 
 
 def _unfused(y: torch.Tensor, epi: tuple | None) -> torch.Tensor:
@@ -314,8 +334,8 @@ def _unfused(y: torch.Tensor, epi: tuple | None) -> torch.Tensor:
 def _launch(impl: str, x, deltas, entries, y, *, t_m: int, ro: int,
             co: int, stride: int, epi: tuple) -> None:
     """One launch of ``impl`` into ``y``; ``epi`` the sm90 launch's
-    epilogue arguments (x_scale, layer_scale, bias, relu, m_rows, m_img;
-    a null x_scale for the raw sums)."""
+    epilogue arguments (x_scale, layer_scale, bias, relu, m_rows, m_img,
+    quantize_x; a null x_scale for the raw sums)."""
     global launches
     b, n_in, ri, ci = x.shape
     m_tiles, _, u_plus = deltas.shape
@@ -348,11 +368,12 @@ def _launch(impl: str, x, deltas, entries, y, *, t_m: int, ro: int,
 
 def _on_cuda(x, deltas, entries, epi, int8_weights: bool,
              impl: str | None = None, *, t_m: int, ro: int, co: int,
-             stride: int) -> torch.Tensor:
+             stride: int, raw: bool = False) -> torch.Tensor:
     """A call whose epilogue is checked, on its instance: ``sm90``
-    applies ``epi`` in its store; after ``simt`` the ``int8_features``
-    epilogue runs."""
-    global launches_with_epilogue
+    applies ``epi`` in its store, and quantizes raw features ``x``
+    (``raw``) in its phase 1b; before ``simt`` the ``int8_features``
+    quantize runs, after it the ``int8_features`` epilogue."""
+    global launches_with_epilogue, launches_with_quantize
     _check("x", x, torch.float32, 4, x.device)
     _check("deltas", deltas, torch.float32, 3, x.device)
     _check("entries", entries, torch.int32, 4, x.device)
@@ -377,6 +398,8 @@ def _on_cuda(x, deltas, entries, epi, int8_weights: bool,
         raise ValueError(f"batch {b} and m_tiles {m_tiles} must be <= "
                          f"{_GRID_YZ}")
     fused = epi is not None and impl == "sm90"
+    if raw and not fused:
+        x = _quantized(x, epi)
     if fused:
         x_scale, layer_scale, bias, relu, out, c = epi
         bias = None if bias is None else bias.contiguous()
@@ -392,18 +415,21 @@ def _on_cuda(x, deltas, entries, epi, int8_weights: bool,
                 stride=stride, epi=(
                     (x_scale.data_ptr(), layer_scale,
                      None if bias is None else bias.data_ptr(),
-                     int(relu), c, m_img) if fused
-                    else (None, 0.0, None, 0, 0, 0)))
+                     int(relu), c, m_img, int(raw)) if fused
+                    else (None, 0.0, None, 0, 0, 0, 0)))
         launches_with_epilogue += int(fused)
+        launches_with_quantize += int(fused and raw)
     return out.permute(0, 2, 3, 1) if fused else _unfused(y, epi)
 
 
-def _packed(x, deltas, entries, epi, int8_weights: bool, **kw
-            ) -> torch.Tensor:
+def _packed(x, deltas, entries, epi, int8_weights: bool, raw: bool = False,
+            **kw) -> torch.Tensor:
     """A call whose epilogue is checked, by device: the plain version on
-    CPU tensors, a launch otherwise."""
+    CPU tensors (raw features quantized first), a launch otherwise."""
     if x.device.type != "cpu":
-        return _on_cuda(x, deltas, entries, epi, int8_weights, **kw)
+        return _on_cuda(x, deltas, entries, epi, int8_weights, raw=raw, **kw)
+    if raw:
+        x = _quantized(x, epi)
     return _unfused(smm_conv_plain(x, deltas, entries, **kw), epi)
 
 
@@ -414,7 +440,8 @@ def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
                   x_scale: torch.Tensor | None = None,
                   layer_scale: float = 1.0,
                   bias: torch.Tensor | None = None, relu: bool = False,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
+                  out: torch.Tensor | None = None,
+                  raw_features: bool = False) -> torch.Tensor:
     """Launch a CUDA kernel: ``x`` (B, N, RI, CI) float32 on a CUDA
     device → (B, m_tiles·t_m, RO, CO) float32, on the instance
     :func:`pick_impl` names, or ``impl``.  ``int8_weights`` is
@@ -430,11 +457,17 @@ def smm_conv_cuda(x: torch.Tensor, deltas: torch.Tensor,
     channel planes: a channel slice of a larger output) or a new tensor
     of C = m_tiles·t_m channels.  ``sm90`` applies it in its store, one
     launch and no raw sums (:data:`launches_with_epilogue`); after
-    ``simt`` the ``int8_features`` epilogue runs."""
+    ``simt`` the ``int8_features`` epilogue runs.
+
+    ``raw_features`` (with ``x_scale``): ``x`` is a layer's raw float32
+    features, whose scale ``x_scale`` is, rather than int8 features; the
+    call quantizes them first, ``sm90`` in its phase 1b
+    (:data:`launches_with_quantize`), ``simt`` after the
+    ``int8_features`` quantize launch."""
     epi = _epilogue(x, deltas.shape[0] * t_m, ro, co, x_scale, layer_scale,
-                    bias, relu, out)
+                    bias, relu, out, raw_features=raw_features)
     return _on_cuda(x, deltas, entries, epi, int8_weights, impl, t_m=t_m,
-                    ro=ro, co=co, stride=stride)
+                    ro=ro, co=co, stride=stride, raw=raw_features)
 
 
 def smm_conv_packed(x: torch.Tensor, deltas: torch.Tensor,
@@ -460,7 +493,8 @@ def smm_conv_batched(x: torch.Tensor, code: LayerCode, *, stride: int = 1,
                      x_scale: torch.Tensor | None = None,
                      layer_scale: float = 1.0,
                      bias: torch.Tensor | None = None, relu: bool = False,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
+                     out: torch.Tensor | None = None,
+                     raw_features: bool = False) -> torch.Tensor:
     """Batched CoDR SMM convolution: ``x`` (B, N, RI, CI) float32 →
     (B, M, RO, CO), int-exact, one launch for the whole batch.
 
@@ -471,7 +505,10 @@ def smm_conv_batched(x: torch.Tensor, code: LayerCode, *, stride: int = 1,
     With ``x_scale`` the layer's epilogue too (:func:`smm_conv_cuda`):
     the layer's output NHWC ``(B, RO, CO, M)``, NCHW storage, in ``out``
     (NCHW ``(B, M, RO, CO)``, a channel slice of a larger output is fine)
-    or in a new tensor of M channels."""
+    or in a new tensor of M channels.  With ``raw_features`` ``x`` is the
+    layer's raw float32 features, quantized against ``x_scale`` by the
+    call (:func:`smm_conv_cuda`; on CPU tensors ``quantize_plain``
+    first)."""
     if stride < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
     _, n_in, ri, ci = x.shape
@@ -482,9 +519,9 @@ def smm_conv_batched(x: torch.Tensor, code: LayerCode, *, stride: int = 1,
         operands = smm_operands_on(code, n_in, x.device)
     deltas, entries, meta = operands
     epi = _epilogue(x, deltas.shape[0] * meta["t_m"], ro, co, x_scale,
-                    layer_scale, bias, relu, out, m)
+                    layer_scale, bias, relu, out, m, raw_features)
     y = _packed(x, deltas, entries, epi, meta.get("int8_weights", False),
-                t_m=meta["t_m"], ro=ro, co=co, stride=stride)
+                raw_features, t_m=meta["t_m"], ro=ro, co=co, stride=stride)
     return y if epi is not None else y[:, :m]
 
 

@@ -295,7 +295,9 @@ def test_cuda_path_equals_the_cpu_plain_version(cuda_device, kind):
     modules) and ``smm_conv`` with the epilogue in its store (into a
     channel slice at each branch's end), bit for bit the CPU's plain
     version, no read to the host, six ``smm_conv`` launches a module, all
-    ``sm90`` and all with the epilogue, no separate epilogue launch."""
+    ``sm90`` and all with the epilogue, no separate epilogue launch; the
+    second module's four readers of its input (NCHW storage: raw
+    features) quantize in phase 1b, and no flat quantize launches."""
     from repro_torch.kernels.int8_features import ops as feats
     from repro_torch.kernels.smm_conv import ops as smm_ops
     spec, _, x = _net(kind)
@@ -307,6 +309,7 @@ def test_cuda_path_equals_the_cpu_plain_version(cuda_device, kind):
     smm_ops.launches_by_impl.update(dict.fromkeys(smm_ops.IMPLS, 0))
     feats.launches_by_impl.update(dict.fromkeys(feats.IMPLS, 0))
     with_epilogue = smm_ops.launches_with_epilogue
+    with_quantize = smm_ops.launches_with_quantize
     got = _profiled(lambda: card.run(x))
     y = card.run(x).cpu()
     n_mod = 1 if kind == "module" else 2
@@ -314,6 +317,8 @@ def test_cuda_path_equals_the_cpu_plain_version(cuda_device, kind):
     assert not [s for s in got if s.name == "codr.host_read"]
     assert smm_ops.launches_by_impl == {"sm90": 12 * n_mod, "simt": 0}
     assert smm_ops.launches_with_epilogue - with_epilogue == 12 * n_mod
+    assert smm_ops.launches_with_quantize - with_quantize == 8 * (n_mod - 1)
+    assert feats.launches_by_impl["quantize"] == 0
     assert feats.launches_by_impl["stats"] == 6 * n_mod
     assert feats.launches_by_impl["quantize_pad"] == 4 * n_mod
     assert feats.launches_by_impl["epilogue"] == 0
@@ -351,7 +356,12 @@ def test_cuda_fused_store_equals_smm_conv_then_epilogue_googlenet(
     is ``torch.equal`` to ``smm_conv`` then the ``int8_features``
     epilogue, each branch's last convolution into its channel slice of
     the module's output with the other channels untouched; one sm90
-    launch each, counted with the epilogue, no separate epilogue."""
+    launch each, counted with the epilogue, no separate epilogue.  At the
+    four readers of the module's input (the three 1×1 convolutions on it,
+    pool proj on its max pooling) on raw features, as after 3a: the
+    launch that quantizes them in phase 1b is ``torch.equal`` to the
+    ``int8_features`` quantize then ``smm_conv``, and pooling the raw
+    features then quantizing is the quantized features pooled."""
     from repro_torch.kernels.int8_features import ops as feats
     from repro_torch.kernels.smm_conv import ops as smm_ops
     mod = next(s for s in googlenet_card.model.steps
@@ -359,6 +369,40 @@ def test_cuda_fused_store_equals_smm_conv_then_epilogue_googlenet(
     hw = GOOGLENET_INCEPTION[name][0]
     gen = torch.Generator(device="cuda").manual_seed(len(name))
     scale = torch.tensor([0.0173], device="cuda")
+    raw = torch.relu(torch.randn(2, GOOGLENET_INCEPTION[name][1], hw, hw,
+                                 device="cuda", generator=gen)) * 30
+    raw_scale = feats.feature_scale(raw.permute(0, 2, 3, 1))
+    pooled = feats.max_pool(raw, 3, 1, 1)
+    assert torch.equal(
+        feats.quantize(pooled.permute(0, 2, 3, 1), raw_scale),
+        feats.max_pool(feats.quantize(raw.permute(0, 2, 3, 1), raw_scale),
+                       3, 1, 1))
+    c0 = 0
+    for branch in mod.branches:
+        reader = next(s for s in branch if s.kind == "conv")
+        m = reader.code.shape[0]
+        width, at = ((mod.out_channels, c0) if reader is branch[-1]
+                     else (m, 0))
+        inp = pooled if branch[0].kind == "pool" else raw
+        bufs = [torch.full((2, width, hw, hw), 7.0, device="cuda")
+                for _ in range(2)]
+        kw = dict(operands=reader.smm_operands(), x_scale=raw_scale,
+                  layer_scale=reader.scale, bias=reader.bias_device,
+                  relu=True)
+        smm_ops.smm_conv_batched(
+            feats.quantize(inp.permute(0, 2, 3, 1), raw_scale), reader.code,
+            out=bufs[0][:, at:at + m], **kw)
+        before = (smm_ops.launches_by_impl["sm90"],
+                  smm_ops.launches_with_quantize,
+                  feats.launches_by_impl["quantize"])
+        smm_ops.smm_conv_batched(inp, reader.code, raw_features=True,
+                                 out=bufs[1][:, at:at + m], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(bufs[0], bufs[1]), (name, reader.name)
+        assert (smm_ops.launches_by_impl["sm90"] - before[0],
+                smm_ops.launches_with_quantize - before[1],
+                feats.launches_by_impl["quantize"] - before[2]) == (1, 1, 0)
+        c0 += branch[-1].code.shape[0]
     c0 = 0
     for branch in mod.branches:
         for layer in (s for s in branch if s.kind == "conv"):
@@ -395,18 +439,26 @@ def test_cuda_fused_store_equals_smm_conv_then_epilogue_googlenet(
 def test_cuda_googlenet_forward_applies_every_epilogue_in_the_store(
         googlenet_card):
     """A forward of the four modules: 24 sm90 launches, each with the
-    epilogue in its store, and no ``int8_features`` epilogue launch."""
+    epilogue in its store, and no ``int8_features`` epilogue launch; 3a's
+    input NHWC-contiguous (``quantize_nhwc``), the inputs of 3b, 4a and
+    4b a layer's output or its pooling (NCHW storage), whose four readers
+    each quantize them in phase 1b: 12 of the 24, no flat quantize
+    launch."""
     from repro_torch.kernels.int8_features import ops as feats
     from repro_torch.kernels.smm_conv import ops as smm_ops
     x = torch.relu(torch.randn(2, 28, 28, 192, device="cuda"))
     googlenet_card.run(x)                    # decode and pack once
     torch.cuda.synchronize()
     before = (dict(smm_ops.launches_by_impl), smm_ops.launches_with_epilogue,
-              feats.launches_by_impl["epilogue"])
+              dict(feats.launches_by_impl), smm_ops.launches_with_quantize)
     y = googlenet_card.run(x)
     torch.cuda.synchronize()
     assert y.shape == (2, 14, 14, 512)
     assert {i: smm_ops.launches_by_impl[i] - before[0][i]
             for i in smm_ops.IMPLS} == {"sm90": 24, "simt": 0}
     assert smm_ops.launches_with_epilogue - before[1] == 24
-    assert feats.launches_by_impl["epilogue"] == before[2]
+    assert smm_ops.launches_with_quantize - before[3] == 12
+    assert {i: feats.launches_by_impl[i] - before[2][i]
+            for i in feats.IMPLS} == {
+        "stats": 12, "quantize": 0, "quantize_nhwc": 1, "quantize_pad": 8,
+        "max_pool": 5, "epilogue": 0}

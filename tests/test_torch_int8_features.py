@@ -159,6 +159,30 @@ def test_epilogue_into_a_channel_slice_on_cpu():
         ops.epilogue(y, s, 0.5, out=buf[:, :5])
 
 
+@pytest.mark.parametrize("args", [(3, 1, 1, False), (3, 2, 0, True),
+                                  (2, 2, 0, False)])
+@pytest.mark.parametrize("kind", KINDS + ("nan",))
+def test_pooled_raw_features_quantize_to_the_pooled_int8_features(kind,
+                                                                  args):
+    """A pool branch on raw features (``smm_kernel``'s where a module's
+    input is a layer's output): max pooling, then quantizing at the
+    features' scale, equals quantizing, then pooling -- max and the
+    quantization are both monotone under one positive scale, and both
+    keep a NaN -- in the plain versions and through the wrappers."""
+    xn = _inputs("random" if kind == "nan" else kind, (2, 9, 9, 5),
+                 seed=len(args) + args[1])
+    if kind == "nan":
+        xn[0, 1, 2, 0] = np.nan
+    x = torch.from_numpy(xn)
+    s = ref.feature_scale_plain(x)
+    raw = x.permute(0, 3, 1, 2)
+    want = ref.max_pool_plain(ref.quantize_plain(x, s), *args)
+    for pool, quantize in ((ref.max_pool_plain, ref.quantize_plain),
+                           (ops.max_pool, ops.quantize)):
+        got = quantize(pool(raw, *args).permute(0, 2, 3, 1), s)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 def test_max_pool_on_cpu_tensors_runs_the_plain_version():
     x = torch.from_numpy(_inputs("relu_out", (2, 9, 9, 5))).permute(
         0, 3, 1, 2)
@@ -242,40 +266,60 @@ def _conv(rng, m, n, k, **kw):
                                activation="relu", **kw)
 
 
+def _module(rng, name: str, c_in: int):
+    """An inception module of 40 channels out: a 1×1, a 3×3 and a 5×5 on
+    their borders after their reduces, a pooling branch."""
+    c = [_conv(rng, m, n, k, padding=k // 2, name=f"{name}.{i}")
+         for i, (m, n, k) in enumerate(((8, c_in, 1), (8, c_in, 1),
+                                        (16, 8, 3), (4, c_in, 1), (8, 4, 5),
+                                        (8, c_in, 1)))]
+    return codr.ModuleSpec(([c[0]], [c[1], c[2]], [c[3], c[4]],
+                            [codr.PoolSpec(3, 1, 1), c[5]]), name=name)
+
+
+# which of a module's six convolutions take its input's features: raw
+# features where the input is a layer's output (NCHW storage)
+_SHARED = [True, True, False, True, False, True]
+
+
 def _cpu_net(net: str):
-    """``(spec, x, pads, slices)``: a VGG-like chain (VALID, a padded 3×3,
-    a pooling between layers) or an inception module (a 1×1, 3×3 and 5×5
-    on their borders after their reduces, a pooling branch), with the
-    pads its feature calls take and the channel offsets of its branches'
-    slices."""
+    """``(spec, x, pads, raws, pools, slices)``: a VGG-like chain (VALID,
+    a padded 3×3, a pooling between layers), an inception module, or two
+    modules with the 3×3/2 pooling between them (the second on raw
+    features: its input is NCHW storage), with the pads its
+    ``int8_features`` calls take, which convolutions take raw features,
+    the poolings and the channel offsets of the branches' slices."""
     rng = np.random.default_rng(3)
     if net == "chain":
         steps = [_conv(rng, 4, 3, 3, name="c0"),
                  _conv(rng, 8, 4, 3, padding=1, name="c1"),
                  codr.PoolSpec(2, 2), _conv(rng, 8, 8, 3, name="c2")]
         x = _inputs("whole_pixels", (2, 12, 12, 3))
-        return codr.ModelSpec(steps), x, [0, 1, 0], []
-    c = [_conv(rng, m, n, k, padding=k // 2, name=f"3a.{i}")
-         for i, (m, n, k) in enumerate(((8, 24, 1), (8, 24, 1), (16, 8, 3),
-                                        (4, 24, 1), (8, 4, 5), (8, 24, 1)))]
-    spec = codr.ModelSpec([codr.ModuleSpec(
-        ([c[0]], [c[1], c[2]], [c[3], c[4]], [codr.PoolSpec(3, 1, 1), c[5]]),
-        name="3a")])
-    return spec, _inputs("relu_out", (2, 10, 10, 24)), [0, 1, 2], \
-        [0, 8, 24, 32]
+        return codr.ModelSpec(steps), x, [0, 1], [False, False, True], 1, []
+    x = _inputs("relu_out", (2, 10, 10, 24))
+    if net == "module":
+        return codr.ModelSpec([_module(rng, "3a", 24)]), x, [0, 1, 2], \
+            [False] * 6, 1, [0, 8, 24, 32]
+    spec = codr.ModelSpec([_module(rng, "3a", 24),
+                           codr.PoolSpec(3, 2, ceil_mode=True),
+                           _module(rng, "3b", 40)])
+    return spec, x, [0, 1, 2, 1, 2], [False] * 6 + _SHARED, 3, \
+        [0, 8, 24, 32] * 2
 
 
-@pytest.mark.parametrize("net", ["chain", "module"])
+@pytest.mark.parametrize("net", ["chain", "module", "modules"])
 def test_smm_kernel_on_cpu_tensors_runs_the_kernel_wrappers(net,
                                                             monkeypatch):
     """CPU tensors on ``smm_kernel`` take the card's path: the
-    ``int8_features`` wrapper for the features and the poolings,
-    ``smm_conv_batched`` with the layer's epilogue (a branch's last layer
-    into its channel slice of the module's output), no host read; the
-    wrappers run their plain versions, and the output is ``smm``'s
-    exactly."""
+    ``int8_features`` wrapper for the features (``stats`` alone where a
+    layer's input is a layer's output with no border: raw features, which
+    ``smm_conv_batched`` quantizes) and the poolings (a pool branch's of
+    raw features too), ``smm_conv_batched`` with the layer's epilogue (a
+    branch's last layer into its channel slice of the module's output),
+    no host read; the wrappers run their plain versions, and the output
+    is ``smm``'s exactly."""
     from repro_torch.kernels.smm_conv import ops as smm_ops
-    spec, x, pads, slices = _cpu_net(net)
+    spec, x, pads, raws, pools, slices = _cpu_net(net)
     cfg = codr.EncodeConfig(n_unique=16)
     want = codr.compile(spec, cfg, backend="smm", device="cpu").run(x)
     model = codr.compile(spec, cfg, backend="smm_kernel", device="cpu")
@@ -300,15 +344,19 @@ def test_smm_kernel_on_cpu_tensors_runs_the_kernel_wrappers(net,
     assert torch.equal(got, want)
     assert (ops.launches, smm_ops.launches) == before
     assert [a[1] for a, _ in calls["int8_features"]] == pads
-    assert len(calls["max_pool"]) == 1
-    convs = [k for _, k in calls["smm_conv_batched"]]
+    assert len(calls["max_pool"]) == pools
+    convs = [(a[0], k) for a, k in calls["smm_conv_batched"]]
     assert len(convs) == len(spec.layers)
-    assert all(k["x_scale"].shape == (1,) and k["relu"] for k in convs)
-    outs = [k["out"] for k in convs if k["out"] is not None]
-    plane = x.shape[1] * x.shape[2]
-    assert [o.storage_offset() // plane for o in outs] == slices
+    assert all(k["x_scale"].shape == (1,) and k["relu"] for _, k in convs)
+    assert [k["raw_features"] for _, k in convs] == raws
+    # raw features are a layer's own output, never quantized: fractional
+    assert all(not torch.equal(q, torch.round(q))
+               for q, k in convs if k["raw_features"])
+    outs = [k["out"] for _, k in convs if k["out"] is not None]
+    assert [o.storage_offset() // (o.shape[2] * o.shape[3])
+            for o in outs] == slices
     assert all(o.untyped_storage().data_ptr()
-               == got.untyped_storage().data_ptr() for o in outs)
+               == got.untyped_storage().data_ptr() for o in outs[-4:])
 
 
 # -- on the card -------------------------------------------------------------
@@ -437,12 +485,14 @@ def _vgg_like(device: str, hw: int = 20):
 @pytest.mark.cuda
 def test_cuda_vgg_like_chain_reads_nothing_and_equals_the_reference(
         cuda_device):
-    """A small VGG16-shaped chain on ``smm_kernel``: two ``int8_features``
-    launches a layer (``quantize_nhwc`` at a block's first layer) and
-    ``smm_conv`` with the epilogue in its store, no
-    ``codr.host_read`` span under a profiler, and the output of every
-    block equal to the host lane (``smm``: ``_int_activations``, NumPy
-    SMM, ``_finish``) and to the plain chain."""
+    """A small VGG16-shaped chain on ``smm_kernel``: ``stats`` a layer,
+    ``quantize_nhwc`` at a block's first layer and no other quantize
+    launch (a block's later layers hand ``smm_conv`` their raw features,
+    which ``sm90`` quantizes in its phase 1b), ``smm_conv`` with the
+    epilogue in its store, no ``codr.host_read`` span under a profiler,
+    and the output of every block equal to the host lane (``smm``:
+    ``_int_activations``, NumPy SMM, ``_finish``) and to the plain
+    chain."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
@@ -466,6 +516,7 @@ def test_cuda_vgg_like_chain_reads_nothing_and_equals_the_reference(
     torch.cuda.synchronize()
     before = dict(ops.launches_by_impl)
     with_epilogue = smm_ops.launches_with_epilogue
+    with_quantize = smm_ops.launches_with_quantize
     spans.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         got = chain(lambda mdl, x: mdl.run(x))
@@ -475,9 +526,10 @@ def test_cuda_vgg_like_chain_reads_nothing_and_equals_the_reference(
     assert recorded.count("codr.features") == 4
     assert "codr.host_read" not in recorded
     assert {k: ops.launches_by_impl[k] - before[k] for k in ops.IMPLS} == \
-        {"stats": 4, "quantize": 2, "quantize_nhwc": 2, "quantize_pad": 0,
+        {"stats": 4, "quantize": 0, "quantize_nhwc": 2, "quantize_pad": 0,
          "max_pool": 0, "epilogue": 0}
     assert smm_ops.launches_with_epilogue - with_epilogue == 4
+    assert smm_ops.launches_with_quantize - with_quantize == 2
     host = chain(lambda mdl, x: mdl.run(x, backend="smm"))
 
     def plain(mdl, x):
@@ -520,6 +572,47 @@ def test_cuda_a_nan_input_still_fails_loudly(cuda_device):
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
                           capture_output=True, text=True, timeout=600)
     assert "launched" in proc.stdout, proc.stderr
+    assert "no error" not in proc.stdout
+    assert proc.returncode != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["nhwc", "nchw"])
+@pytest.mark.parametrize("value", ["inf", "-inf", "nan"])
+def test_cuda_an_infinite_or_nan_feature_fails_loudly(value, storage,
+                                                      cuda_device):
+    """An infinite feature makes the scale infinite, and inf / inf is NaN;
+    a NaN keeps the scale at 1 and stays NaN: either way ``smm_conv``'s
+    sm90 instance stops the launch (``__trap``), whether the features
+    were quantized first (NHWC-contiguous input: ``quantize_nhwc``) or
+    reach it raw (NCHW storage: quantized in its phase 1b, counted in
+    ``launches_with_quantize``).  A trapped launch ends the process's CUDA
+    context, so it runs apart."""
+    code = "\n".join([
+        "import numpy as np, torch",
+        "import repro_torch.api as codr",
+        "from repro_torch.kernels.smm_conv import ops",
+        "w = np.random.default_rng(0).normal(size=(8, 4, 3, 3))",
+        "spec = codr.ModelSpec([codr.LayerSpec.conv(w.astype(np.float32),",
+        "                                           activation='relu')])",
+        "m = codr.compile(spec, codr.EncodeConfig(n_unique=16),",
+        "                 backend='smm_kernel', device='cuda')",
+        "x = torch.rand(2, 10, 10, 4, device='cuda')",
+        f"if {storage == 'nchw'}:",
+        "    x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)",
+        "m.run(x); torch.cuda.synchronize()",
+        "n = ops.launches_with_quantize",
+        f"x[1, 3, 4, 2] = float('{value}')",
+        "y = m.run(x)",
+        "print('launched', ops.launches_with_quantize - n, flush=True)",
+        "torch.cuda.synchronize()",
+        "print('no error', float(y.abs().max()), flush=True)",
+    ])
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert f"launched {int(storage == 'nchw')}" in proc.stdout, proc.stderr
     assert "no error" not in proc.stdout
     assert proc.returncode != 0
 

@@ -23,7 +23,8 @@ import torch
 from repro_torch.core import smm as tsmm
 from repro_torch.core import ucr as tucr
 from repro_torch.kernels.int8_features import ops as feats
-from repro_torch.kernels.int8_features.ref import epilogue_plain
+from repro_torch.kernels.int8_features.ref import (epilogue_plain,
+                                                   quantize_plain)
 from repro_torch.kernels.smm_conv import ops as tops
 from repro_torch.kernels.smm_conv import ref as tref
 
@@ -173,7 +174,7 @@ def test_kernel_caps_is_a_literal_with_the_registry_keys():
 # -- the sm90 instance's arithmetic, emulated on the host -----------------
 
 def _emulate_sm90(x, deltas, entries, *, t_m, ro, co, store_padding=False,
-                  epi=None):
+                  epi=None, quant=None):
     """NumPy emulation of ``smm_conv_sm90.cu`` at stride 1.
 
     Phase 1 builds the dense int8 weight matrix, K ordered (tap r, tap c,
@@ -183,6 +184,9 @@ def _emulate_sm90(x, deltas, entries, *, t_m, ro, co, store_padding=False,
     channel-innermost in int8, pixels linearized as q = y·CI + x, and per
     tile of ``ops.sm90_plan`` takes the int32 sum of the window shifted by
     r·CI + c against the tap's weights; outputs at x ≥ CO are dropped.
+    ``quant`` (a scale) emulates phase 1b on raw features: each value
+    becomes clamp(rint(x / scale), -127, 127) in float32 (an IEEE
+    division, half to even) before it is staged.
 
     ``epi`` (a dict: ``x_scale``, ``layer_scale``, ``bias``, ``relu``,
     ``m``, ``buf``, ``c0``) emulates the store with the layer's epilogue:
@@ -209,6 +213,8 @@ def _emulate_sm90(x, deltas, entries, *, t_m, ro, co, store_padding=False,
                     v = vals[mt, n, u]
                 assert -128 <= v <= 127
                 w[mt * t_m + ml, r * kw + c, n] = v
+    if quant is not None:
+        x = np.clip(np.rint(x / np.float32(quant)), -127, 127)
     assert np.array_equal(x, np.rint(x)) and np.abs(x).max() <= 127
     plane = ri * ci
     xs = np.zeros((b, plane + plan["p"], k_pad), np.int8)
@@ -306,13 +312,13 @@ EPILOGUES = [(False, False, None), (True, False, None), (False, True, (0, 3)),
              (True, True, (5, 2))]
 
 
-def _fused_case(rng, m, b, ro, co, bias, relu, where):
+def _fused_case(rng, m, b, ro, co, bias, relu, where, scale=0.0173):
     """The epilogue's operands for an ``m``-channel layer: ``(kw, buf,
     c0)``, ``kw`` the fused call's keywords (``out`` a channel slice of
     ``buf``, a 7-filled NCHW buffer, where ``where`` asks for one)."""
     before, after = where or (0, 0)
     buf = torch.full((b, before + m + after, ro, co), 7.0)
-    kw = dict(x_scale=torch.tensor([0.0173], dtype=torch.float32),
+    kw = dict(x_scale=torch.tensor([scale], dtype=torch.float32),
               layer_scale=0.0421,
               bias=torch.from_numpy(rng.normal(size=m).astype(np.float32)
                                     * 40) if bias else None,
@@ -324,60 +330,107 @@ def _untouched(buf, c0, m) -> bool:
     return bool((buf[:, :c0] == 7).all() and (buf[:, c0 + m:] == 7).all())
 
 
+# the features of a fused call: int8 features (the scale the epilogue's
+# alone), or raw features (``raw_features``) with their scale: whole
+# numbers within ±127 at scale 1, half-way points (k + 0.5)·s (s a power
+# of two, so each point is exact and rounds half to even), values past
+# ±127·s (clamped)
+X_KINDS = ("int8", "raw_whole", "raw_half", "raw_clamp")
+
+
+def _features(rng, kind, x_int):
+    """``(x, scale, raw)`` of ``kind`` for whole-number ``x_int`` (NCHW
+    within ±127): the call's features, their scale and whether they are
+    raw; the raw kinds hold what they stand for."""
+    if kind == "int8":
+        return x_int, 0.0173, False
+    if kind == "raw_whole":
+        return x_int, 1.0, True
+    if kind == "raw_half":
+        x = ((np.minimum(x_int, 126) + 0.5) * 0.125).astype(np.float32)
+        assert (np.abs(x / 0.125 - np.rint(x / 0.125)) == 0.5).all()
+        return x, 0.125, True
+    x = (rng.uniform(-200, 200, size=x_int.shape) * 0.0173).astype(
+        np.float32)
+    assert (np.abs(x / np.float32(0.0173)) > 127.5).any()
+    return x, 0.0173, True
+
+
+def _int8_of(x, scale, raw):
+    """The int8 features of a call's ``x``: ``quantize_plain`` of raw
+    features (NCHW), else ``x``."""
+    x = torch.from_numpy(x)
+    if not raw:
+        return x
+    return quantize_plain(x.permute(0, 2, 3, 1), torch.tensor([scale]))
+
+
+@pytest.mark.parametrize("x_kind", X_KINDS)
 @pytest.mark.parametrize("epi", EPILOGUES)
 @pytest.mark.parametrize("shape", SM90_EMU_SHAPES)
-def test_sm90_fused_store_emulated_equals_the_plain_epilogue(shape, epi, rng):
+def test_sm90_fused_store_emulated_equals_the_plain_epilogue(shape, epi,
+                                                            x_kind, rng):
     """The sm90 store with the layer's epilogue, emulated, and the
     wrapper's fused call on CPU tensors (``smm_conv_batched``): bit for
     bit ``epilogue_plain(smm_conv_plain(...))``, with and without bias
     and ReLU; the rows past M of a ragged last m_tile (m = 6, 10) are
-    not written, nor the channels beside a slice."""
+    not written, nor the channels beside a slice.  On raw features
+    phase 1b's quantization, emulated, and the wrapper's are
+    ``quantize_plain`` first."""
     m, n, rk, ck, ri, ci, t_m, t_n = shape
     _, code, deltas, entries, meta, x = _stride1_case(rng, *shape)
+    x, scale, raw_features = _features(rng, x_kind, x)
     ro, co = ri - rk + 1, ci - ck + 1
-    kw, buf, c0 = _fused_case(rng, m, x.shape[0], ro, co, *epi)
+    kw, buf, c0 = _fused_case(rng, m, x.shape[0], ro, co, *epi, scale=scale)
     d, e = torch.from_numpy(deltas), torch.from_numpy(entries)
-    raw = tref.smm_conv_plain(torch.from_numpy(x), d, e, t_m=t_m, ro=ro,
-                              co=co)
+    raw = tref.smm_conv_plain(_int8_of(x, scale, raw_features), d, e,
+                              t_m=t_m, ro=ro, co=co)
     want = epilogue_plain(raw[:, :m], kw["x_scale"], kw["layer_scale"],
                           kw["bias"], kw["relu"])
     emu = _emulate_sm90(x, deltas, entries, t_m=t_m, ro=ro, co=co, epi=dict(
         x_scale=kw["x_scale"].numpy()[0], layer_scale=kw["layer_scale"],
         bias=None if kw["bias"] is None else kw["bias"].numpy(),
-        relu=kw["relu"], m=m, buf=buf.numpy().copy(), c0=c0))
+        relu=kw["relu"], m=m, buf=buf.numpy().copy(), c0=c0),
+        quant=scale if raw_features else None)
     np.testing.assert_array_equal(emu[:, c0:c0 + m],
                                   want.permute(0, 3, 1, 2).numpy())
     assert _untouched(torch.from_numpy(emu), c0, m)
     got = tops.smm_conv_batched(torch.from_numpy(x), code,
-                                operands=(d, e, meta), **kw)
+                                operands=(d, e, meta),
+                                raw_features=raw_features, **kw)
     assert got.shape == (x.shape[0], ro, co, m)
     assert torch.equal(got, want) and _untouched(buf, c0, m)
     if kw["out"] is not None:
         assert torch.equal(buf[:, c0:c0 + m], want.permute(0, 3, 1, 2))
 
 
+@pytest.mark.parametrize("x_kind", X_KINDS)
 @pytest.mark.parametrize("epi", EPILOGUES)
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_fused_call_on_cpu_tensors_is_the_plain_epilogue(shape, stride, epi,
-                                                         rng):
+                                                         x_kind, rng):
     """``smm_conv_packed`` and ``smm_conv_batched`` with the epilogue's
     operands on CPU tensors: the plain version, then ``epilogue_plain``
     into the slice where there is one, and no launch counted; without
-    them the raw sums as before."""
+    them the raw sums as before.  Raw features (``raw_features`` of
+    ``smm_conv_batched``): ``quantize_plain`` first, bit for bit."""
     m, n, rk, ck, ri, ci, t_m, t_n = shape
     code = tucr.encode_conv_layer(_sparse(rng, (m, n, rk, ck), 0.5),
                                   t_m=t_m, t_n=t_n)
     d, e, meta = tops.smm_operands_on(code, n, "cpu")
-    x = torch.from_numpy(rng.integers(-127, 128, size=(2, n, ri, ci))
-                         .astype(np.float32))
+    xn, scale, raw_features = _features(
+        rng, x_kind, rng.integers(-127, 128, size=(2, n, ri, ci)).astype(
+            np.float32))
+    x, q = torch.from_numpy(xn), _int8_of(xn, scale, raw_features)
     ro, co = (ri - rk) // stride + 1, (ci - ck) // stride + 1
-    raw = tops.smm_conv_packed(x, d, e, t_m=t_m, ro=ro, co=co, stride=stride)
-    assert torch.equal(raw, tref.smm_conv_plain(x, d, e, t_m=t_m, ro=ro,
+    raw = tops.smm_conv_packed(q, d, e, t_m=t_m, ro=ro, co=co, stride=stride)
+    assert torch.equal(raw, tref.smm_conv_plain(q, d, e, t_m=t_m, ro=ro,
                                                 co=co, stride=stride))
-    before = (tops.launches, tops.launches_with_epilogue)
+    before = (tops.launches, tops.launches_with_epilogue,
+              tops.launches_with_quantize)
     for call in ("packed", "batched"):
-        kw, buf, c0 = _fused_case(rng, m, 2, ro, co, *epi)
+        kw, buf, c0 = _fused_case(rng, m, 2, ro, co, *epi, scale=scale)
         want = epilogue_plain(raw[:, :m], kw["x_scale"], kw["layer_scale"],
                               kw["bias"], kw["relu"])
         if call == "packed":
@@ -386,13 +439,15 @@ def test_fused_call_on_cpu_tensors_is_the_plain_epilogue(shape, stride, epi,
                     [kw["bias"], torch.zeros(raw.shape[1] - m)])
                 want = epilogue_plain(raw, kw["x_scale"], kw["layer_scale"],
                                       kw["bias"], kw["relu"])
-            got = tops.smm_conv_packed(x, d, e, t_m=t_m, ro=ro, co=co,
+            got = tops.smm_conv_packed(q, d, e, t_m=t_m, ro=ro, co=co,
                                        stride=stride, **kw)
         else:
             got = tops.smm_conv_batched(x, code, stride=stride,
-                                        operands=(d, e, meta), **kw)
+                                        operands=(d, e, meta),
+                                        raw_features=raw_features, **kw)
         assert torch.equal(got, want) and _untouched(buf, c0, m)
-    assert (tops.launches, tops.launches_with_epilogue) == before
+    assert (tops.launches, tops.launches_with_epilogue,
+            tops.launches_with_quantize) == before
 
 
 _BAD_EPILOGUES = [
@@ -408,6 +463,8 @@ _BAD_EPILOGUES = [
     (torch.ones(1), None, torch.zeros(2, 9, 6, 6), "out must be"),
     (None, torch.ones(6), None, "pass x_scale"),
     (None, None, torch.zeros(2, 6, 6, 6), "pass x_scale"),
+    # raw features (ReLU for smm_conv_packed), and nothing else
+    (None, None, None, "pass x_scale"),
 ]
 
 
@@ -423,6 +480,8 @@ def test_fused_call_rejects_a_bad_epilogue(x_scale, bias, out, match, entry,
     d, e, meta = tops.smm_operands_on(code, 2, "cpu")
     x = torch.zeros(2, 2, 8, 8)
     kw = dict(x_scale=x_scale, bias=bias, out=out, relu=True)
+    if all(t is None for t in (x_scale, bias, out)) and entry != "packed":
+        kw.update(relu=False, raw_features=True)   # raw features alone
     with pytest.raises(ValueError, match=match):
         if entry == "batched":
             tops.smm_conv_batched(x, code, operands=(d, e, meta), **kw)
@@ -788,33 +847,200 @@ def test_cuda_fused_store_equals_smm_conv_then_epilogue_vgg16(index,
         assert counts == (1, 1, 0)
 
 
-@pytest.mark.cuda
-def test_cuda_vgg16_forward_applies_every_epilogue_in_the_store(vgg16_card):
-    """A forward of the seven layers: 7 sm90 launches, each counted with
-    the epilogue, no ``int8_features`` epilogue launch, and the output of
-    the layers run one by one on two kernels (features, ``smm_conv``,
-    epilogue)."""
-    x = torch.from_numpy(np.random.default_rng(1).integers(
-        0, 256, size=(2, 30, 30, 3)).astype(np.float32)).cuda()
-    vgg16_card.run(x)                        # decode and pack once
-    torch.cuda.synchronize()
-    before = (dict(tops.launches_by_impl), tops.launches_with_epilogue,
-              feats.launches_by_impl["epilogue"])
-    y = vgg16_card.run(x)
-    torch.cuda.synchronize()
-    assert {i: tops.launches_by_impl[i] - before[0][i]
-            for i in tops.IMPLS} == {"sm90": 7, "simt": 0}
-    assert tops.launches_with_epilogue - before[1] == 7
-    assert feats.launches_by_impl["epilogue"] == before[2]
-    h = x
-    for layer in vgg16_card.model.layers:
-        q, s = feats.int8_features(h)
-        h = feats.epilogue(
+def _counts():
+    """sm90 launches, those with the epilogue and with phase 1b's
+    quantization, and the ``int8_features`` quantize and epilogue
+    launches, so far."""
+    return (tops.launches_by_impl["sm90"], tops.launches_with_epilogue,
+            tops.launches_with_quantize, feats.launches_by_impl["quantize"],
+            feats.launches_by_impl["epilogue"])
+
+
+def _since(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+def _by_kernels(layers, x):
+    """``layers`` run one by one on their kernels, every layer's input
+    quantized by ``int8_features`` first: features, ``smm_conv``,
+    epilogue."""
+    for layer in layers:
+        q, s = feats.int8_features(x)
+        x = feats.epilogue(
             tops.smm_conv_batched(q, layer.code,
                                   operands=layer.smm_operands()),
             s, layer.scale, None if layer.bias is None else layer.bias_device,
             relu=layer.activation == "relu")
-    assert torch.equal(y, h)
+    return x
+
+
+@pytest.mark.cuda
+def test_cuda_vgg16_forward_applies_every_epilogue_in_the_store(vgg16_card):
+    """A forward of the seven layers: 7 sm90 launches, each counted with
+    the epilogue, 6 of them quantizing their raw features in phase 1b (the
+    first layer's input is NHWC-contiguous: ``quantize_nhwc``), no
+    ``int8_features`` quantize or epilogue launch, and the output of the
+    layers run one by one on two kernels (features, ``smm_conv``,
+    epilogue).  In ``vgg16.b64``'s form, a model a block, each fed
+    NHWC-contiguous: 4 of the 7 quantize in phase 1b."""
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.engine import CodrModel
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, size=(2, 30, 30, 3)).astype(np.float32)).cuda()
+    vgg16_card.run(x)                        # decode and pack once
+    torch.cuda.synchronize()
+    before = (dict(tops.launches_by_impl), _counts())
+    y = vgg16_card.run(x)
+    torch.cuda.synchronize()
+    assert {i: tops.launches_by_impl[i] - before[0][i]
+            for i in tops.IMPLS} == {"sm90": 7, "simt": 0}
+    assert _since(before[1]) == (7, 7, 6, 0, 0)
+    assert torch.equal(y, _by_kernels(vgg16_card.model.layers, x))
+    layers = vgg16_card.model.layers
+    blocks = [CodrModel(layers[:2]), CodrModel(layers[2:4]),
+              CodrModel(layers[4:])]
+    lane = get_backend("smm_kernel")
+    h = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, size=(2, 44, 44, 3)).astype(np.float32)).cuda()
+    before, ins, outs = _counts(), [], []
+    for k, block in enumerate(blocks):
+        if k:
+            h = torch.nn.functional.max_pool2d(
+                h.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
+        ins.append(h)
+        h = lane.run_model(block, h)
+        outs.append(h)
+    torch.cuda.synchronize()
+    assert _since(before) == (7, 7, 4, 0, 0)
+    for block, h, got in zip(blocks, ins, outs):
+        assert torch.equal(got, _by_kernels(block.layers, h))
+
+
+# VGG16's in-block layers as vgg16.b64 runs them (conv1_2, conv2_2,
+# conv3_2, conv3_3 of the one-model chain, at their input planes)
+_VGG_IN_BLOCK = [(1, 226), (3, 114), (5, 60), (6, 58)]
+
+
+def _raw_kinds(n, hw, gen):
+    """``(kind, x, scale)``: raw NCHW features ``(2, n, hw, hw)`` of four
+    kinds, each with its scale: a ReLU's output at the ``stats`` scale,
+    whole numbers within ±127 at scale 1, half-way points (k + 0.5) / 8
+    at scale 1/8, values past ±127 · s."""
+    shape = (2, n, hw, hw)
+    relu = torch.relu(torch.randn(shape, device="cuda", generator=gen)) * 30
+    whole = torch.randint(-127, 128, shape, device="cuda",
+                          generator=gen).float()
+    half = (torch.randint(-127, 127, shape, device="cuda", generator=gen)
+            + 0.5) * 0.125
+    clamp = (torch.rand(shape, device="cuda", generator=gen) - 0.5) * 7
+    return [("relu", relu, feats.feature_scale(relu.permute(0, 2, 3, 1))),
+            ("whole", whole, torch.ones(1, device="cuda")),
+            ("half", half, torch.full((1,), 0.125, device="cuda")),
+            ("clamp", clamp, torch.full((1,), 0.0173, device="cuda"))]
+
+
+def _raw_both_ways(layer, x, scale, out_two, out_one, **epi):
+    """``layer`` on raw features ``x`` both ways, into ``out_two`` and
+    ``out_one``: the ``int8_features`` quantize then ``smm_conv`` with the
+    epilogue, and one launch that quantizes in phase 1b.  Returns the
+    one-launch call's counts (:func:`_counts`)."""
+    kw = dict(stride=layer.stride, operands=layer.smm_operands(),
+              x_scale=scale, layer_scale=layer.scale, **epi)
+    tops.smm_conv_batched(feats.quantize(x.permute(0, 2, 3, 1), scale),
+                          layer.code, out=out_two, **kw)
+    before = _counts()
+    got = tops.smm_conv_batched(x, layer.code, out=out_one,
+                                raw_features=True, **kw)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out_one.data_ptr()
+    return _since(before)
+
+
+def _identity_layer(n: int):
+    """A 1×1 convolution whose int8 weights are 127 times the identity:
+    each output value is one input value's int8 times 127, so a call's
+    output shows every quantized value on its own."""
+    code = tucr.encode_conv_layer(np.eye(n, dtype=np.float32)[:, :, None,
+                                                              None],
+                                  t_m=4, t_n=4)
+    d, e, meta = tops.smm_operands_on(code, n, "cuda")
+    assert meta["int8_weights"]
+    return code, (d, e, meta)
+
+
+def _near_midpoints(s: float, shape, gen) -> torch.Tensor:
+    """Raw features that test a quantization at scale ``s``: the floats
+    nearest (k + 0.5)·s and k·s and up to three ulps either side, for k in
+    ±130 (past the clamp), and magnitudes from 2^-40·s to 2^40·s, signs
+    mixed."""
+    k = torch.randint(-130, 131, shape, device="cuda", generator=gen)
+    half = torch.randint(0, 2, shape, device="cuda", generator=gen) * 0.5
+    x = ((k + half).double() * s).float()
+    for _ in range(3):
+        step = torch.randint(-1, 2, shape, device="cuda", generator=gen)
+        x = torch.where(step > 0, torch.nextafter(x, torch.full_like(
+            x, float("inf"))), torch.where(step < 0, torch.nextafter(
+                x, torch.full_like(x, -float("inf"))), x))
+    wide = (torch.rand(shape, device="cuda", generator=gen) * 80 - 40).exp2()
+    sign = torch.randint(0, 2, shape, device="cuda", generator=gen) * 2 - 1
+    pick = torch.rand(shape, device="cuda", generator=gen) < 0.25
+    return torch.where(pick, (wide * sign * s).float(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 0.0173, 0.125, 3.7e-19, 9.1e18,
+                                   2.0 ** -70, 2.0 ** 70, "stats"])
+def test_cuda_phase1b_quantize_is_the_quantize_pass_value_by_value(
+        scale, cuda_device):
+    """Phase 1b's quantization of raw features, one value at a time (a
+    1×1 layer of 127 times the identity, so no sum mixes two values):
+    ``torch.equal`` to the ``int8_features`` quantize (``__fdiv_rn``)
+    then the same launch, over 8.4 M values near the half-way points
+    (k + 0.5)·s and the whole multiples k·s, past the clamp and from
+    2^-40·s to 2^40·s, at scales inside the reciprocal's range and past
+    it (2^±70: the ``__fdiv_rn`` loop), and at the ``stats`` scale of a
+    ReLU's output."""
+    n = 32
+    code, operands = _identity_layer(n)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shape = (8, n, 128, 256)
+    if scale == "stats":
+        x = torch.relu(torch.randn(shape, device="cuda", generator=gen)) * 30
+        s = feats.feature_scale(x.permute(0, 2, 3, 1))
+    else:
+        x = _near_midpoints(scale, shape, gen)
+        s = torch.tensor([scale], dtype=torch.float32, device="cuda")
+    kw = dict(operands=operands, x_scale=s, layer_scale=1.0)
+    two = tops.smm_conv_batched(feats.quantize(x.permute(0, 2, 3, 1), s),
+                                code, **kw)
+    before = _counts()
+    one = tops.smm_conv_batched(x, code, raw_features=True, **kw)
+    torch.cuda.synchronize()
+    assert _since(before) == (1, 1, 1, 0, 0)
+    bad = (one != two).sum().item()
+    assert bad == 0, (scale, bad, float((one - two).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index, hw", _VGG_IN_BLOCK)
+def test_cuda_phase1b_quantize_equals_quantize_then_smm_conv_vgg16(
+        index, hw, vgg16_card):
+    """At each VGG16 in-block layer (batch 2, its input plane in
+    ``vgg16.b64``), on raw features of four kinds: the sm90 launch that
+    quantizes them in phase 1b is ``torch.equal`` to the ``int8_features``
+    quantize then ``smm_conv`` (whole numbers at scale 1, half-way points
+    rounded to even, values past ±127·s clamped); one sm90 launch, with
+    the epilogue and the quantization, no ``int8_features`` launch."""
+    layer = vgg16_card.model.layers[index]
+    m, n = layer.code.shape[:2]
+    gen = torch.Generator(device="cuda").manual_seed(index)
+    bias = torch.randn(m, device="cuda", generator=gen) * 40
+    for kind, x, scale in _raw_kinds(n, hw, gen):
+        bufs = [torch.full((2, m, hw - 2, hw - 2), 7.0, device="cuda")
+                for _ in range(2)]
+        counts = _raw_both_ways(layer, x, scale, *bufs, bias=bias, relu=True)
+        assert torch.equal(bufs[0], bufs[1]), (index, kind)
+        assert counts == (1, 1, 1, 0, 0), kind
 
 
 @pytest.mark.cuda
@@ -823,7 +1049,9 @@ def test_cuda_simt_routed_layers_keep_the_separate_epilogue(cuda_device,
     """A strided layer, and one whose operands are not known to fit int8,
     go to simt, which has no fused store: ``smm_conv`` then the
     ``int8_features`` epilogue launch, the plain epilogue's numbers, into
-    the slice; through the backend too."""
+    the slice; through the backend too.  On raw features the
+    ``int8_features`` quantize launches first, as it would have before
+    ``sm90`` took the quantization in."""
     import repro_torch.api as codr
     w = _sparse(rng, (10, 6, 3, 3), 0.5)
     b = rng.normal(size=10).astype(np.float32)
@@ -851,6 +1079,14 @@ def test_cuda_simt_routed_layers_keep_the_separate_epilogue(cuda_device,
                                   stride=stride)[:, :10]
         assert torch.equal(got, epilogue_plain(raw, scale, 0.37, bias, True))
         assert _untouched(buf.cpu(), 3, 10)
+        before = _counts()
+        again = tops.smm_conv_batched(
+            x * 0.0211, code, stride=stride, operands=(d, e, dict(
+                meta, int8_weights=flag)), x_scale=scale, layer_scale=0.37,
+            bias=bias, relu=True, raw_features=True)
+        torch.cuda.synchronize()
+        assert _since(before) == (0, 0, 0, 1, 1)
+        assert torch.equal(again, got)
     spec = codr.ModelSpec([codr.LayerSpec.conv(w, b, stride=2,
                                                activation="relu")])
     xin = x[:1].permute(0, 2, 3, 1).contiguous()
@@ -865,6 +1101,17 @@ def test_cuda_simt_routed_layers_keep_the_separate_epilogue(cuda_device,
     assert (tops.launches_with_epilogue,
             feats.launches_by_impl["epilogue"] - 1) == before
     assert torch.equal(y.cpu(), host.run(xin.cpu()))
+    # a layer's output as its input (NCHW storage): raw features, which
+    # the simt-routed layer has quantized by the int8_features quantize
+    from repro_torch.core.backends import get_backend
+    lane, layer = get_backend("smm_kernel"), card.model.layers[0]
+    xr = (xin * 0.3).permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    before = _counts()
+    y = lane.conv(layer, xr)
+    torch.cuda.synchronize()
+    assert _since(before) == (0, 0, 0, 1, 1)
+    assert torch.equal(y.cpu(), get_backend("smm_kernel").conv(
+        host.model.layers[0], xr.cpu()))
 
 
 @pytest.mark.cuda
